@@ -1,0 +1,9 @@
+from .base import (DetectorLightCurveModel, SourceModel, get_source_model,
+                   register_source_model)
+from .svd import SVDModelData, make_svd_source_model, svd_from_numpy
+
+__all__ = [
+    "DetectorLightCurveModel", "SourceModel",
+    "get_source_model", "register_source_model", "SVDModelData",
+    "make_svd_source_model", "svd_from_numpy",
+]

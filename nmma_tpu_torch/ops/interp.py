@@ -1,0 +1,91 @@
+"""Linear and masked 1-D interpolation in PyTorch.
+
+Counterparts of ``jnp.interp`` and of ``nmma_tpu/ops/interp.py``
+(``masked_interp``, ``masked_interp_sorted_fill``), which re-design the
+reference's ``autocomplete_data`` (``nmma/em/utils.py:626-677``): samples
+with non-finite ``y`` are ignored, fewer than 2 valid samples give
+``fill_value`` everywhere, and out-of-range policies are ``where`` masks.
+``x``/``y`` are 1-D; queries ``xq`` may have any shape.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_BIG = 1e30  # sentinel abscissa for invalid samples; finite in f32
+
+
+def interp(xq, xp, fp, left=None, right=None):
+    """``jnp.interp``/``np.interp`` on tensors: ``xp`` ascending, constant
+    extrapolation unless ``left``/``right`` are given."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, xq.contiguous(), right=True),
+                    1, n - 1)
+    x_lo, x_hi = xp[i - 1], xp[i]
+    f_lo, f_hi = fp[i - 1], fp[i]
+    dx = x_hi - x_lo
+    # the same guard jnp.interp applies against a zero-width cell
+    eps = torch.finfo(xp.dtype).eps
+    dx0 = dx.abs() <= math.ulp(eps)
+    f = torch.where(dx0, f_lo,
+                    f_lo + ((xq - x_lo) / torch.where(dx0, 1.0, dx))
+                    * (f_hi - f_lo))
+    f = torch.where(xq < xp[0], fp[0] if left is None else left, f)
+    return torch.where(xq > xp[-1], fp[-1] if right is None else right, f)
+
+
+def masked_interp(xq, x, y, valid=None, left=None, right=None,
+                  fill_value=math.inf):
+    """Interpolate ``y(x)`` onto ``xq`` ignoring invalid samples; constant
+    (clamped) extrapolation unless ``left``/``right`` are given."""
+    ok = torch.isfinite(y) & torch.isfinite(x)
+    if valid is not None:
+        ok = ok & valid
+    n_valid = ok.sum()
+    xv = torch.where(ok, x, _BIG)
+    order = torch.argsort(xv, stable=True)
+    xs = xv[order]
+    ys = torch.where(ok, y, 0.0)[order]
+    idx_last = torch.clamp(n_valid - 1, min=0)
+    # pad the invalid tail with a flat continuation of the last valid sample
+    ys = torch.where(torch.arange(xs.shape[0], device=xs.device) < n_valid,
+                     ys, ys[idx_last])
+    res = interp(xq, xs, ys)
+    if left is not None:
+        res = torch.where(xq < xs[0], left, res)
+    if right is not None:
+        res = torch.where(xq > xs[idx_last], right, res)
+    return torch.where(n_valid >= 2, res, fill_value)
+
+
+def masked_interp_sorted_fill(xq, x, y, fill):
+    """Masked interpolation for ascending ``x``: each query uses its nearest
+    valid neighbours; queries outside the valid range get ``fill``."""
+    n = x.shape[0]
+    valid = torch.isfinite(y)
+    n_valid = valid.sum()
+    idx = torch.arange(n, device=x.device)
+    # nearest valid index at-or-before / at-or-after each grid index
+    left_of = torch.cummax(torch.where(valid, idx, -1), 0).values
+    right_of = n - 1 - torch.flip(torch.cummax(
+        torch.flip(torch.where(valid, n - 1 - idx, -1), (0,)), 0).values,
+        (0,))
+
+    pos = torch.clamp((xq[..., None] >= x).sum(-1) - 1, 0, n - 1)
+    l_idx = left_of[pos]
+    r_idx = right_of[torch.clamp(pos + 1, 0, n - 1)]
+    # a query beyond the last grid cell still needs the last valid point
+    r_idx = torch.where(pos >= n - 1, left_of[n - 1], r_idx)
+    l_ok = l_idx >= 0
+    r_ok = (r_idx >= 0) & (r_idx <= n - 1)
+    x_l, y_l = x[l_idx.clamp(0, n - 1)], y[l_idx.clamp(0, n - 1)]
+    x_r, y_r = x[r_idx.clamp(0, n - 1)], y[r_idx.clamp(0, n - 1)]
+    span = torch.where(x_r > x_l, x_r - x_l, 1.0)
+    w = torch.clamp((xq - x_l) / span, 0.0, 1.0)
+    est = torch.where(l_ok & r_ok, y_l + w * (y_r - y_l), fill)
+    x_first = x[right_of[0].clamp(0, n - 1)]
+    x_last = x[left_of[n - 1].clamp(0, n - 1)]
+    est = torch.where((xq < x_first) | (xq > x_last), fill, est)
+    return torch.where(n_valid >= 2, est, fill)

@@ -1,0 +1,142 @@
+"""K1 and the SVD surrogate of the PyTorch port against the JAX package.
+
+The port's plain K1 (``nmma_tpu_torch.ops.svd_kernel``, what a CPU tensor
+runs) is held against the Pallas kernel in interpret mode and against the
+JAX rank-C eval at production dims (P=4, H=2048, C=10, F=9) and Q=150, at
+atol 1e-4 mag: the tolerance the JAX package holds its own kernel to
+(tests/test_pallas_svd.py:55), f32 sums over H=2048 in different orders.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nmma_tpu.models.svd import SVDModelData as JaxSVDModelData
+from nmma_tpu.models.svd import _SVDFastEval, svd_surrogate_mags
+from nmma_tpu.ops.pallas_svd import svd_surrogate_mags_pallas
+from nmma_tpu_torch.models.svd import SVDModelData, svd_from_numpy
+from nmma_tpu_torch.ops import svd_kernel
+
+torch.set_num_threads(1)
+
+ART = "artifacts/Bu2019lm_production_svd.npz"
+ATOL = 1e-4
+# the JAX package's own K1 test grid (tests/test_pallas_svd.py:28): Q=150
+# inside the trained range; outside it the projection extrapolates to
+# values the model replaces with inf
+T_DAYS = np.geomspace(0.3, 12.0, 150)
+
+
+@pytest.fixture(scope="module")
+def arrays():
+    with np.load(ART) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def jax_eval():
+    return _SVDFastEval(JaxSVDModelData.load(ART))
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+
+@pytest.mark.parametrize("batch", [1, 128, 200])
+def test_plain_k1_matches_pallas_and_rankc(jax_eval, batch):
+    ev = jax_eval
+    va_q, off_q, _ = ev.operator_rankc(T_DAYS)
+    x = np.random.default_rng(batch).uniform(
+        0.0, 1.0, (batch, ev._w1_stack.shape[1])).astype(np.float32)
+    ops = (ev._w1_stack, ev._b1_stack, ev._w2c, ev._b2c, va_q, off_q)
+    pallas = np.asarray(svd_surrogate_mags_pallas(
+        jnp.asarray(x), *ops, interpret=True))
+    core, _ = ev._rankc_fn(T_DAYS)
+    rankc = np.asarray(jax.vmap(core)(jnp.asarray(x)))
+    got = svd_kernel.svd_surrogate_mags(_t(x), *[_t(a) for a in ops]).numpy()
+    assert got.shape == (batch, ev.F, len(T_DAYS))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, rankc, rtol=0, atol=ATOL)
+
+
+def test_plain_k1_matches_pallas_on_main_path_grid(jax_eval):
+    """K1 on the time grid of the main path (geomspace(0.01, 14, 150),
+    as the analysis and the smoke run use it), with the JAX package's own
+    operators. Only the columns inside the trained range are compared: the
+    model replaces the others with inf, and there the JAX operators
+    extrapolate, so their f32 sums reach ~1e-4 mag apart."""
+    ev = jax_eval
+    t_days = np.geomspace(0.01, 14.0, 150)
+    va_q, off_q, inside = ev.operator_rankc(t_days)
+    assert 0 < inside.sum() < len(t_days)
+    x = np.random.default_rng(7).uniform(
+        0.0, 1.0, (128, ev._w1_stack.shape[1])).astype(np.float32)
+    ops = (ev._w1_stack, ev._b1_stack, ev._w2c, ev._b2c, va_q, off_q)
+    pallas = np.asarray(svd_surrogate_mags_pallas(
+        jnp.asarray(x), *ops, interpret=True))
+    got = svd_kernel.svd_surrogate_mags(_t(x), *[_t(a) for a in ops]).numpy()
+    assert got.shape == pallas.shape == (128, ev.F, len(t_days))
+    np.testing.assert_allclose(got[:, :, inside], pallas[:, :, inside],
+                               rtol=0, atol=ATOL)
+
+
+def test_svd_from_numpy_matches_jax_model(arrays):
+    """Same arrays, same parameters: rank-C operators equal inside the
+    trained range [0.2, 14] d (both built in float64 on the host; the port
+    zeroes the columns the JAX package extrapolates and then discards),
+    equal inf fill outside it, and magnitudes within ATOL."""
+    port = svd_from_numpy(arrays, device="cpu")
+    ref = JaxSVDModelData.load(ART)
+    # output times reaching below and beyond the trained range
+    t_days = np.geomspace(0.01, 20.0, 150).astype(np.float32)
+    va_j, off_j, inside_j = _SVDFastEval(ref).operator_rankc(t_days)
+    va_p, off_p, inside_p = port.operator_rankc(torch.from_numpy(t_days))
+    np.testing.assert_array_equal(inside_p.numpy(), inside_j)
+    assert 0 < inside_j.sum() < len(t_days)
+    np.testing.assert_array_equal(va_p.numpy()[:, :, inside_j],
+                                  va_j[:, :, inside_j])
+    np.testing.assert_array_equal(off_p.numpy()[:, inside_j],
+                                  off_j[:, inside_j])
+    assert not va_p.numpy()[:, :, ~inside_j].any()
+    assert not off_p.numpy()[:, ~inside_j].any()
+
+    rng = np.random.default_rng(5)
+    lo, hi = arrays["param_mins"], arrays["param_maxs"]
+    theta = rng.uniform(lo, hi, (16, len(lo))).astype(np.float32)
+    names = port.parameter_names
+    want = np.asarray(jax.vmap(lambda th: svd_surrogate_mags(
+        ref, {n: th[i] for i, n in enumerate(names)}, jnp.asarray(t_days)))(
+            jnp.asarray(theta)))
+    got = port({n: torch.from_numpy(theta[:, i]) for i, n in
+                enumerate(names)}, torch.from_numpy(t_days)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert np.isinf(got[:, :, ~inside_j]).all()
+    assert np.isfinite(got[:, :, inside_j]).all()
+    np.testing.assert_allclose(got[np.isfinite(got)], want[np.isfinite(want)],
+                               rtol=0, atol=ATOL)
+
+
+def test_load_reads_the_artifact(arrays):
+    svd = SVDModelData.load(ART, device="cpu")
+    assert svd.filters == tuple(str(f) for f in arrays["filters"])
+    assert tuple(svd.w1.shape) == arrays["w1"].shape
+    assert svd.n_coeff == arrays["w2"].shape[2]
+
+
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(jax_eval):
+    ev = jax_eval
+    va_q, off_q, _ = ev.operator_rankc(T_DAYS)
+    ops = [_t(a) for a in (ev._w1_stack, ev._b1_stack, ev._w2c, ev._b2c,
+                           va_q, off_q)]
+    x = torch.rand(4, 4)
+    with pytest.raises(TypeError):
+        svd_kernel.svd_surrogate_mags(x.double(), *ops)
+    with pytest.raises(ValueError):
+        svd_kernel.svd_surrogate_mags(torch.rand(4, 3), *ops)
+    with pytest.raises(ValueError):
+        svd_kernel.svd_surrogate_mags(torch.rand(4, 8)[:, ::2], *ops)
+    with pytest.raises(ValueError):
+        svd_kernel.svd_surrogate_mags(x.to("meta"),
+                                      *[o.to("meta") for o in ops])
