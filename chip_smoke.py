@@ -6,26 +6,40 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``nmma_tpu_torch/csrc`` and drives the
-EM parameter-estimation main path of ``nmma_tpu_torch`` at the production
-width of the Bu2019lm SVD surrogate (P=4, H=2048, C=10, F=9, Q=150):
+EM parameter-estimation main path of ``nmma_tpu_torch`` with its two source
+models: the Bu2019lm SVD surrogate at production width (P=4, H=2048, C=10,
+F=9, Q=150) through K1, and the analytic Me2017 kilonova (299 shells, T=150,
+9 filters x 9 bandpass nodes) through K2:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
-  2. build    nvcc build of every kernel, in seconds;
-  3. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes (K1: B = 1, 128, 8199; max abs error
-              <= 1e-4 mag), then kernel and plain timings at B = 8192
-              (CUDA events, median of 25 rounds of 10 launches);
+  2. build    nvcc build of every kernel, all started together, in seconds;
+  3. k1       K1 against its plain PyTorch version on the card at the main
+              path's shapes (B = 1, 128, 8199; max abs error <= 1e-4 mag),
+              then kernel and plain timings at B = 8192 (CUDA events, median
+              of 25 rounds of 10 launches);
   4. logl     synthetic photometry from the surrogate -> .dat file ->
               load_em_observations -> EMAnalysis.batched_logl at B = 8192
-              (one K1 launch): finite share, evals/s over 5 rounds of
-              >= 0.4 s of back-to-back calls (with the spread of the
-              rounds), and max |dlogL| against the same batch with the
+              (one K1 launch, no K2 launch): finite share, evals/s over 5
+              rounds of >= 0.4 s of back-to-back calls (with the spread of
+              the rounds), and max |dlogL| against the same batch with the
               plain K1 on the card; a torch.profiler pass at B = 8192 and
               128 gives device-busy time and idle share;
   5. sampler  EMAnalysis.run: nested sampling with nlive=1024, n_delete=128,
               capped at 40 iterations and 90 s; logZ, likelihood calls and
-              the run's K1 launches, which must be 1 + iterations x walks;
-              result files.
+              the run's K1 launches, which must be 1 + iterations x walks,
+              with no K2 launch; result files.
+  6. k2       K2 against its plain version on the card at B = 1, 128, 8199
+              under the near-tie rule (ops/me2017_kernel.py
+              compare_dynamics): max relative errors, near-ties, mismatches;
+              then kernel and plain timings at B = 8192 as for K1;
+  7. me2017_logl
+              the same as phase 4 with the Me2017 model (one K2 launch, no
+              K1 launch), its peak device memory, and |dlogL| against the
+              plain K2 off the live points where the plain version sees a
+              near-tie;
+  8. me2017_sampler
+              the same as phase 5 with the Me2017 model: K2 launches
+              1 + iterations x walks, no K1 launch.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -62,6 +76,23 @@ DEVICE = "cuda"
 BATCH = 8192
 K1_TOL = 1e-4                # mag, as tests/test_pallas_svd.py:55
 LOGL_RTOL, LOGL_ATOL = 1e-4, 1e-2
+# the Me2017 path: the in-repo prior of tests/test_inference.py:61-66 with
+# the distance and timeshift free, and its injection (:46-47)
+ME_PRIOR_TEXT = """\
+log10_mej = Uniform(minimum=-3., maximum=-0.5)
+log10_vej = Uniform(minimum=-2., maximum=-0.5)
+beta = Uniform(minimum=1., maximum=5.)
+log10_kappa_r = Uniform(minimum=-1., maximum=2.)
+luminosity_distance = Uniform(minimum=1., maximum=200.)
+timeshift = Uniform(minimum=-0.2, maximum=0.2)
+"""
+ME_INJECTION = {"log10_mej": -1.3, "log10_vej": -1.1, "beta": 3.0,
+                "log10_kappa_r": 0.8, "luminosity_distance": 40.0,
+                "timeshift": 0.0}
+# f32 operations per (live point, shell, step) in the K2 loop body
+# (csrc/me2017_dynamics.cu), and per (live point, step) outside it
+K2_OPS_SHELL_STEP = 31
+K2_OPS_STEP = 2
 # peaks of one H100 SXM at 700 W (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -130,18 +161,18 @@ def device_profile(torch, fn):
         f"{e.key[:40]}:{e.self_device_time_total / 1e3:.4f}" for e in top)
 
 
-def synthetic_photometry(np, torch, svd_model, filters, path):
-    """Injection light curve of the port's surrogate, ~10 epochs per filter
-    in 0.5-12 d with seeded noise and a few upper limits, written as a .dat
-    file in MJD."""
+def synthetic_photometry(np, torch, model, filters, path, injection):
+    """Injection light curve of one of the port's models, ~10 epochs per
+    filter in 0.5-12 d with seeded noise and a few upper limits, written as
+    a .dat file in MJD."""
     from nmma_tpu_torch.io import write_em_observations
     from nmma_tpu_torch.models import DetectorLightCurveModel
 
     detector = DetectorLightCurveModel(
-        svd_model, filters, sample_times=np.geomspace(0.01, 14.0, 150),
+        model, filters, sample_times=np.geomspace(0.01, 14.0, 150),
         device=DEVICE)
     params = {k: torch.tensor([v], device=DEVICE)
-              for k, v in INJECTION.items()}
+              for k, v in injection.items()}
     t_obs, mags = detector(params)
     t_obs = t_obs[0].cpu().numpy().astype(np.float64)
     mags = mags[0].cpu().numpy().astype(np.float64)
@@ -161,6 +192,177 @@ def synthetic_photometry(np, torch, svd_model, filters, path):
     return data
 
 
+def me2017_path(np, torch, gen, sample_times):
+    """Phases 6-8: K2 against its plain version, then the Me2017 main path
+    through EMAnalysis.batched_logl and the sampler. Returns K2's entry of
+    the kernel line."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.inference import NestedSamplerConfig
+    from nmma_tpu_torch.ops import me2017_kernel as k2
+    from nmma_tpu_torch.ops import svd_kernel
+
+    # 6. K2 against its plain version at the main path's shapes
+    def draw(b):   # the parameter ranges of tests/test_pallas_kernel.py
+        u = torch.rand((4, b), generator=gen, device=DEVICE)
+        return (-3.0 + 2.5 * u[0], -2.0 + 1.5 * u[1], 1.0 + 4.0 * u[2],
+                10.0 ** (-1.0 + 3.0 * u[3]))
+
+    worst = {"ltot_max_rel": 0.0, "r_max_rel_non_tie": 0.0}
+    max_err = 0.0
+    for b in (1, 128, BATCH + 7):
+        ops = k2.me2017_operands(*draw(b), sample_times)
+        ltot, r_photo = k2.me2017_dynamics_from_operands(*ops)
+        want = k2.me2017_dynamics_plain(*ops, with_ties=True)
+        torch.cuda.synchronize()
+        stats = k2.compare_dynamics(ltot, r_photo, *want)
+        if ltot.shape != want[0].shape or not stats["ok"]:
+            raise RuntimeError(f"K2 disagrees at B={b}: {stats}")
+        for key in worst:
+            worst[key] = max(worst[key], stats[key])
+        max_err = max(max_err, float((ltot - want[0]).abs().max()))
+        say("k2", batch=b, **{k: v for k, v in stats.items() if k != "ok"},
+            r_exact_share=f"{float((r_photo == want[1]).float().mean()):.6f}")
+    n_t = sample_times.shape[0]
+    ops = k2.me2017_operands(*draw(BATCH), sample_times)
+    k2_ms = time_ms(torch, lambda: k2.me2017_dynamics_from_operands(*ops))
+    k2_plain_ms = time_ms(torch, lambda: k2.me2017_dynamics_plain(*ops))
+    n_ops = (n_t - 1) * BATCH * (K2_OPS_SHELL_STEP * k2.N_SHELLS
+                                 + K2_OPS_STEP)
+    n_bytes = 4.0 * sum(t.numel() for t in ops) + 4.0 * 2 * BATCH * n_t
+    k2_bound_ms = 1e3 * max(n_ops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES)
+    k2_bound_by = "operations" if n_ops / PEAK_F32_FLOPS >= \
+        n_bytes / PEAK_BYTES else "bytes"
+    say("k2", batch=BATCH, kernel_ms=f"{k2_ms:.4f}",
+        plain_ms=f"{k2_plain_ms:.4f}", bound_ms=f"{k2_bound_ms:.4f}",
+        bound_by=k2_bound_by, gops=f"{n_ops / 1e9:.3f}",
+        mbytes=f"{n_bytes / 1e6:.3f}")
+
+    # 7. the Me2017 main path: photometry file -> batched_logl at B=8192
+    filters = ["sdssu", "ztfg", "ztfr", "ztfi", "ps1::z", "ps1::y",
+               "2massj", "2massh", "2massks"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_me2017_") as tmp:
+        data_path = os.path.join(tmp, "injection.dat")
+        prior_path = os.path.join(tmp, "me2017.prior")
+        with open(prior_path, "w") as f:
+            f.write(ME_PRIOR_TEXT)
+        synthetic_photometry(np, torch, "Me2017", filters, data_path,
+                             ME_INJECTION)
+        cfg = EMAnalysisConfig(
+            model="Me2017", prior_file=prior_path, light_curve_data=data_path,
+            trigger_time=TRIGGER_MJD, data_tmax=12.5, error_budget=1.0,
+            filters=filters, outdir=os.path.join(tmp, "outdir"),
+            label="chip_smoke_me2017",
+            sampler=NestedSamplerConfig(nlive=1024, n_delete=128,
+                                        max_iter=40, max_seconds=90.0))
+        analysis = EMAnalysis(cfg, device=DEVICE)
+        u = analysis.priors.sample_units(gen, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        svd_kernel.LAUNCHES = k2.LAUNCHES = 0
+        logl = analysis.batched_logl(u)
+        torch.cuda.synchronize()
+        logl_launches = k2.LAUNCHES
+        if logl_launches != 1 or svd_kernel.LAUNCHES != 0:
+            raise RuntimeError(f"Me2017 batched_logl launched K2 "
+                               f"{logl_launches} times and K1 "
+                               f"{svd_kernel.LAUNCHES} times, not once and "
+                               "never")
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if logl.shape != (BATCH,) or torch.isnan(logl).any():
+            raise RuntimeError(f"bad batched_logl output {logl.shape}")
+        usable = logl > -1e29
+        finite_share = float(usable.float().mean())
+        if finite_share < 0.5:
+            raise RuntimeError(f"only {finite_share:.3f} of logL finite")
+        logl_ms, logl_calls, round_ms = throughput(
+            torch, lambda: analysis.batched_logl(u))
+        for b, ms in ((BATCH, logl_ms), (128, throughput(
+                torch, lambda: analysis.batched_logl(u[:128]))[0])):
+            busy, n_launch, top = device_profile(
+                torch, lambda: analysis.batched_logl(u[:b]))
+            say("me2017_profile", batch=b, wall_ms=f"{ms:.4f}",
+                device_busy_ms=f"{busy:.4f}",
+                idle_share=f"{1.0 - busy / ms:.4f}",
+                kernel_launches=n_launch, top=top)
+
+        # the same batch with the plain K2 on the card, off the live points
+        # where the plain version sees a near-tie
+        kernel_fn = k2.me2017_dynamics_from_operands
+        k2.me2017_dynamics_from_operands = k2.me2017_dynamics_plain
+        try:
+            logl_plain = analysis.batched_logl(u)
+        finally:
+            k2.me2017_dynamics_from_operands = kernel_fn
+        p = analysis.priors.transform(u)
+        gap = k2.me2017_dynamics_plain(*k2.me2017_operands(
+            p["log10_mej"], p["log10_vej"], p["beta"],
+            10.0 ** p["log10_kappa_r"], analysis.model.sample_times),
+            with_ties=True)[2]
+        keep = ~(gap < k2.NEAR_TIE).any(dim=1)
+        if not torch.equal(usable[keep], (logl_plain > -1e29)[keep]):
+            raise RuntimeError("sentinel positions differ from the plain K2")
+        kept = usable & keep
+        dlogl = (logl - logl_plain)[kept].abs()
+        allowed = LOGL_ATOL + LOGL_RTOL * logl_plain[kept].abs()
+        if bool((dlogl > allowed).any()):
+            raise RuntimeError(f"logL off the plain K2 by {float(dlogl.max())}")
+        priors = analysis.priors
+        inj_u = torch.tensor([[
+            (ME_INJECTION[n] - priors[n].minimum)
+            / (priors[n].maximum - priors[n].minimum)
+            for n in priors.sampled_names]], device=DEVICE)
+        logl_inj = float(analysis.batched_logl(inj_u)[0])
+        if not logl_inj > float(logl[usable].median()):
+            raise RuntimeError(f"injection logL {logl_inj} below the median")
+        say("me2017_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
+            k2_launches=logl_launches, k1_launches=svd_kernel.LAUNCHES,
+            calls=logl_calls, wall_ms=f"{logl_ms:.4f}",
+            evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+            evals_per_s_rounds=",".join(
+                f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
+            peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+            tie_samples_dropped=int((~keep).sum()),
+            max_abs_dlogl_vs_plain=f"{float(dlogl.max()):.3e}",
+            logl_injection=f"{logl_inj:.3f}",
+            logl_median=f"{float(logl[usable].median()):.3f}")
+
+        # 8. the nested sampler on the Me2017 path
+        t0 = time.time()
+        svd_kernel.LAUNCHES = k2.LAUNCHES = 0
+        result = analysis.run(verbose=False)
+        torch.cuda.synchronize()
+        launches = k2.LAUNCHES
+        seconds = time.time() - t0
+        if not math.isfinite(result.logz):
+            raise RuntimeError(f"Me2017 logZ not finite: {result.logz}")
+        expected = 1 + result.niter * cfg.sampler.walks
+        if launches != expected or launches <= 0 \
+                or svd_kernel.LAUNCHES != 0:
+            raise RuntimeError(f"the Me2017 sampler launched K2 {launches} "
+                               f"times (expected {expected}) and K1 "
+                               f"{svd_kernel.LAUNCHES} times")
+        for suffix in ("_result.npz", "_result_meta.json",
+                       "_posterior_samples.csv", "_bestfit_params.json"):
+            if not os.path.exists(os.path.join(cfg.outdir,
+                                               cfg.label + suffix)):
+                raise RuntimeError(f"missing result file {suffix}")
+        say("me2017_sampler", logz=f"{result.logz:.4f}",
+            logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+            likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
+            k2_launches=launches, k1_launches=svd_kernel.LAUNCHES)
+
+    return {
+        "name": "me2017_dynamics", "route": "cuda",
+        "source": "nmma_tpu_torch/csrc/me2017_dynamics.cu",
+        "replaces": "nmma_tpu/ops/pallas_me2017.py:35",
+        "launches": launches, "launches_batched_logl": logl_launches,
+        "max_abs_err": max_err, **worst,
+        "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -178,7 +380,7 @@ def main() -> int:
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
     from nmma_tpu_torch.inference import NestedSamplerConfig
     from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
-    from nmma_tpu_torch.ops import svd_kernel
+    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -241,7 +443,8 @@ def main() -> int:
         prior_path = os.path.join(tmp, "bu2019lm.prior")
         with open(prior_path, "w") as f:
             f.write(PRIOR_TEXT)
-        synthetic_photometry(np, torch, MODEL, list(svd.filters), data_path)
+        synthetic_photometry(np, torch, MODEL, list(svd.filters), data_path,
+                             INJECTION)
 
         cfg = EMAnalysisConfig(
             model=MODEL, prior_file=prior_path, light_curve_data=data_path,
@@ -252,13 +455,14 @@ def main() -> int:
                                         max_iter=40, max_seconds=90.0))
         analysis = EMAnalysis(cfg, device=DEVICE)
         u = analysis.priors.sample_units(gen, BATCH)
-        svd_kernel.LAUNCHES = 0
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = 0
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
         logl_launches = svd_kernel.LAUNCHES
-        if logl_launches != 1:
+        if logl_launches != 1 or me2017_kernel.LAUNCHES != 0:
             raise RuntimeError(f"batched_logl launched K1 {logl_launches} "
-                               "times, not once")
+                               f"times and K2 {me2017_kernel.LAUNCHES} times, "
+                               "not once and never")
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
             raise RuntimeError(f"bad batched_logl output {logl.shape}")
         usable = logl > -1e29
@@ -312,7 +516,7 @@ def main() -> int:
 
         # 5. nested sampler through EMAnalysis.run
         t0 = time.time()
-        svd_kernel.LAUNCHES = 0
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = 0
         result = analysis.run(verbose=False)
         torch.cuda.synchronize()
         launches = svd_kernel.LAUNCHES
@@ -324,6 +528,9 @@ def main() -> int:
         if launches != expected or launches <= 0:
             raise RuntimeError(f"the sampler launched K1 {launches} times, "
                                f"expected {expected}")
+        if me2017_kernel.LAUNCHES != 0:
+            raise RuntimeError(f"the Bu2019lm sampler launched K2 "
+                               f"{me2017_kernel.LAUNCHES} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
             if not os.path.exists(os.path.join(cfg.outdir,
@@ -334,6 +541,7 @@ def main() -> int:
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
             k1_launches=launches)
 
+    k2_entry = me2017_path(np, torch, gen, sample_times)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
@@ -342,7 +550,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }]
+    }, k2_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -31,6 +31,10 @@ KERNELS = {
         "nmma_svd_mlp_mags": (_I, [_P] * 8 + [_I] * 7 + [_P]),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "me2017_dynamics": ("me2017_dynamics.cu", {
+        "nmma_me2017_dynamics": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+        "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -61,24 +65,38 @@ def library_path(name: str) -> str:
 
 def build(names=None) -> dict[str, str]:
     """Compile the named kernels (all by default) that have no current
-    library. Returns {name: library path}; raises with nvcc's output if a
-    build fails."""
+    library, one ``nvcc`` per source, all started together. Returns
+    {name: library path}; raises with nvcc's output if a build fails."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {name: library_path(name) for name in names}
-    for name, path in paths.items():
-        if os.path.exists(path):
-            continue
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, KERNELS[name][0])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} (exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        # atomic: a concurrent process never loads a half-written library
-        os.replace(tmp, path)
+    procs = {}
+    try:
+        for name, path in paths.items():
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                procs[name] = (tmp, subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, KERNELS[name][0])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name} (exit "
+                              f"{proc.returncode}):\n{output}")
+            else:
+                # atomic: a concurrent process never loads a half-written
+                # library
+                os.replace(tmp, paths[name])
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return paths
 
 

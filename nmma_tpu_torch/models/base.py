@@ -74,6 +74,11 @@ class SourceModel:
     mags_fn: Callable  # (params, t_days[T], nu_host[B, F]) -> [B, F, T]
     default_time_grid: Callable = None  # () -> np.ndarray[T]
     citation: str = ""
+    # bandpass-integrated: mags_fn also takes the host-frame quadrature
+    # nu_nodes [B, F, K] and nu_weights [F, K] (transmission-weighted band
+    # magnitudes instead of point sampling at the effective wavelength;
+    # the reference integrates via sncosmo, nmma/em/model.py:1121-1180)
+    banded: bool = False
     # filter rows the function emits; None => it follows the requested
     # filters. SVD surrogates are trained per filter, so their rows are fixed
     # and get gathered/inf-filled to the requested set (reference
@@ -140,7 +145,8 @@ class DetectorLightCurveModel:
                                    device=self.device)
 
         self.nu_0s = f32(filters_to_frequencies(self.filters))
-        # extinction is band-averaged over each filter's quadrature
+        # extinction is band-averaged over each filter's quadrature, which
+        # banded source models also integrate their spectrum over
         nodes, weights = filters_to_quadrature(self.filters)
         self.nu_nodes = f32(nodes)
         self.nu_weights = f32(weights)
@@ -182,7 +188,11 @@ class DetectorLightCurveModel:
         z = p["redshift"]
         p["distance_modulus"] = distance_modulus(p["luminosity_distance"])
         nu_host = self.nu_0s[None, :] * (1.0 + z)[:, None]
-        mags = self.source.mags_fn(p, t, nu_host)            # [B, F_src, T]
+        extra = {}
+        if self.source.banded:
+            extra = {"nu_nodes": self.nu_nodes[None] * (1.0 + z)[:, None, None],
+                     "nu_weights": self.nu_weights}
+        mags = self.source.mags_fn(p, t, nu_host, **extra)   # [B, F_src, T]
 
         if self._rows is not None:
             mags = mags[:, self._rows]

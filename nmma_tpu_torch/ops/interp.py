@@ -26,9 +26,10 @@ def interp(xq, xp, fp, left=None, right=None):
     x_lo, x_hi = xp[i - 1], xp[i]
     f_lo, f_hi = fp[i - 1], fp[i]
     dx = x_hi - x_lo
-    # the same guard jnp.interp applies against a zero-width cell
+    # the same guard jnp.interp applies against a zero-width cell:
+    # np.spacing(eps) of xp's dtype, which is eps**2 (1.42e-14 in f32)
     eps = torch.finfo(xp.dtype).eps
-    dx0 = dx.abs() <= math.ulp(eps)
+    dx0 = dx.abs() <= eps * eps
     f = torch.where(dx0, f_lo,
                     f_lo + ((xq - x_lo) / torch.where(dx0, 1.0, dx))
                     * (f_hi - f_lo))
@@ -89,3 +90,59 @@ def masked_interp_sorted_fill(xq, x, y, fill):
     x_last = x[left_of[n - 1].clamp(0, n - 1)]
     est = torch.where((xq < x_first) | (xq > x_last), fill, est)
     return torch.where(n_valid >= 2, est, fill)
+
+
+def masked_interp_linear_sorted(xq, x, y, fill_value=math.inf):
+    """Row-wise linear-extrapolating masked interpolation on an ascending
+    grid (``masked_interp_linear_sorted``, nmma_tpu ops/interp.py:208).
+
+    ``x`` [T] ascending, ``y`` [B, T] with non-finite entries ignored,
+    ``xq`` [Q]; returns [B, Q]. Interior queries use the nearest valid
+    neighbours, queries beyond the valid range extrapolate linearly from its
+    two edge samples, and rows with fewer than 2 valid samples are
+    ``fill_value``.
+    """
+    n = x.shape[0]
+    valid = torch.isfinite(y)
+    n_valid = valid.sum(dim=1, keepdim=True)
+    idx = torch.arange(n, device=y.device).expand_as(y)
+
+    def rows(index):                        # [B, K] indices -> y[b, index]
+        return torch.gather(y, 1, index)
+
+    left_of = torch.cummax(torch.where(valid, idx, -1), 1).values
+    right_of = n - 1 - torch.flip(torch.cummax(
+        torch.flip(torch.where(valid, n - 1 - idx, -1), (1,)), 1).values,
+        (1,))
+
+    pos = torch.clamp((xq[:, None] >= x).sum(-1) - 1, 0, n - 1)       # [Q]
+    l_idx = left_of[:, pos]                                           # [B, Q]
+    r_idx = right_of[:, torch.clamp(pos + 1, 0, n - 1)]
+
+    # edge-valid indices for two-point extrapolation, [B, 1]
+    i0 = torch.clamp(right_of[:, :1], 0, n - 1)
+    i1 = torch.clamp(torch.gather(right_of, 1, torch.clamp(i0 + 1, 0, n - 1)),
+                     0, n - 1)
+    i_last = torch.clamp(left_of[:, -1:], 0, n - 1)
+    i_m = torch.clamp(torch.gather(left_of, 1,
+                                   torch.clamp(i_last - 1, 0, n - 1)),
+                      0, n - 1)
+
+    l_safe = torch.clamp(l_idx, 0, n - 1)
+    r_safe = torch.clamp(r_idx, 0, n - 1)
+    x_l, y_l = x[l_safe], rows(l_safe)
+    x_r, y_r = x[r_safe], rows(r_safe)
+    span = torch.where(x_r > x_l, x_r - x_l, 1.0)
+    w = torch.clamp((xq - x_l) / span, 0.0, 1.0)
+    res = y_l + w * (y_r - y_l)
+    # interior queries in an invalid head/tail cell: the nearest valid value
+    y0, y1, y_last, y_m = rows(i0), rows(i1), rows(i_last), rows(i_m)
+    x0, x1, x_last, x_m = x[i0], x[i1], x[i_last], x[i_m]
+    res = torch.where(l_idx < 0, y0, res)
+    res = torch.where(r_idx > n - 1, y_last, res)
+
+    lo_slope = (y1 - y0) / torch.where(x1 != x0, x1 - x0, 1.0)
+    hi_slope = (y_last - y_m) / torch.where(x_last != x_m, x_last - x_m, 1.0)
+    res = torch.where(xq < x0, y0 + lo_slope * (xq - x0), res)
+    res = torch.where(xq > x_last, y_last + hi_slope * (xq - x_last), res)
+    return torch.where(n_valid >= 2, res, fill_value)

@@ -192,3 +192,15 @@ def test_module_parity(name, tmp_path):
         assert got.shape == want.shape
         np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
         np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def test_interp_narrow_cells_match_jnp_interp():
+    """Cells narrower than jnp.interp's zero-width guard (np.spacing of the
+    f32 eps, 1.42e-14) give fp[i-1] there, as in JAX: exactly [0, 10]."""
+    xp = np.array([0.0, 1e-15, 2e-15, 1.0], dtype=np.float32)
+    fp = np.array([0.0, 10.0, 20.0, 30.0], dtype=np.float32)
+    xq = np.array([0.5e-15, 1.5e-15, 0.5], dtype=np.float32)
+    want = np.asarray(jnp.interp(xq, xp, fp))
+    got = t_interp.interp(_t(xq), _t(xp), _t(fp)).numpy()
+    np.testing.assert_array_equal(want[:2], [0.0, 10.0])
+    np.testing.assert_array_equal(got, want)
