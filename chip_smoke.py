@@ -6,10 +6,13 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``nmma_tpu_torch/csrc`` and drives the
-EM parameter-estimation main path of ``nmma_tpu_torch`` with its two source
+EM parameter-estimation main path of ``nmma_tpu_torch`` with its source
 models: the Bu2019lm SVD surrogate at production width (P=4, H=2048, C=10,
-F=9, Q=150) through K1, and the analytic Me2017 kilonova (299 shells, T=150,
-9 filters x 9 bandpass nodes) through K2:
+F=9, Q=150) through K1, the analytic Me2017 kilonova (299 shells, T=150,
+9 filters x 9 bandpass nodes) through K2, the TrPi2018 GRB afterglow at the
+JAX package's full resolution (48 rings x 16 phi nodes, 256 radii, stage 2
+on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
+through K2 and K3:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds;
@@ -40,6 +43,24 @@ F=9, Q=150) through K1, and the analytic Me2017 kilonova (299 shells, T=150,
   8. me2017_sampler
               the same as phase 5 with the Me2017 model: K2 launches
               1 + iterations x walks, no K1 launch.
+  9. k3       K3 against its plain version on the card on stage-1 operands
+              of config-3 prior draws at B = 1, 64, 257 (max relative error
+              where |ref| > 1e-6 max|ref|, <= 5e-3); then the kernel's time
+              at B = 8192 (median of 5 rounds of 2 launches), the plain
+              version's (one call) and the bound;
+ 10. grb_logl the same as phase 7 with TrPi2018 on config-3 photometry (one
+              K3 launch, no K1 or K2 launch), with |dlogL| against the plain
+              K3 at B = 1024 and the profile at B = 8192 and 64 with K3's
+              device time;
+ 11. grb_sampler
+              nested sampling with config 3's nlive=512, n_delete=64,
+              walks=16, capped at 40 iterations and 90 s: K3 launches
+              1 + iterations x walks, no K1 or K2 launch, finite logZ;
+ 12. combined_logl
+              Me2017 + TrPi2018 (make_combined_source_model) on synthetic
+              photometry, one batched_logl at B = 1024: one K2 and one K3
+              launch, |dlogL| against the plain K2 and K3 off near-tie live
+              points.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -93,6 +114,74 @@ ME_INJECTION = {"log10_mej": -1.3, "log10_vej": -1.1, "beta": 3.0,
 # (csrc/me2017_dynamics.cu), and per (live point, step) outside it
 K2_OPS_SHELL_STEP = 31
 K2_OPS_STEP = 2
+# the TrPi2018 path: BASELINE config 3, scripts/bench_grb_pe.py:17-50
+GRB_FILTERS = ["ztfg", "ztfr", "ztfi", "X-ray-1keV", "radio-6GHz"]
+GRB_PRIOR_TEXT = """\
+log10_E0 = Uniform(minimum=49., maximum=54.)
+thetaCore = Uniform(minimum=0.01, maximum=0.3)
+thetaWing = 0.4
+inclination_EM = Uniform(minimum=0., maximum=0.5)
+log10_n0 = Uniform(minimum=-4., maximum=1.)
+p = Uniform(minimum=2.01, maximum=2.9)
+log10_epsilon_e = Uniform(minimum=-3., maximum=-0.3)
+log10_epsilon_B = Uniform(minimum=-5., maximum=-0.5)
+xi_N = 1.0
+luminosity_distance = 350.0
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+"""
+GRB_INJECTION = {"log10_E0": 51.5, "thetaCore": 0.1, "thetaWing": 0.4,
+                 "inclination_EM": 0.05, "log10_n0": -1.5, "p": 2.4,
+                 "log10_epsilon_e": -1.2, "log10_epsilon_B": -3.0,
+                 "xi_N": 1.0, "luminosity_distance": 350.0, "timeshift": 0.0}
+# relative, where |ref| > 1e-6 max|ref|: K3 reads <= 2.6e-5 against its plain
+# version on the card, a bf16 hat (the JAX default's) 3e-4 to 7e-4 against
+# the plain version on the CPU (tests/test_torch_grb.py)
+K3_TOL = 1e-4
+# Me2017 + TrPi2018: the model and prior of BASELINE config 4
+# (scripts/bench_grb_pe.py:63-97) on synthetic photometry
+COMBINED_PRIOR_TEXT = """\
+log10_mej = Uniform(minimum=-3., maximum=-1.)
+log10_vej = Uniform(minimum=-2., maximum=-0.5)
+beta = Uniform(minimum=1., maximum=5.)
+log10_kappa_r = Uniform(minimum=-1., maximum=2.)
+log10_E0 = Uniform(minimum=47., maximum=53.)
+thetaCore = Uniform(minimum=0.01, maximum=0.3)
+thetaWing = 0.3
+inclination_EM = Uniform(minimum=0., maximum=0.4)
+log10_n0 = Uniform(minimum=-5., maximum=1.)
+p = Uniform(minimum=2.01, maximum=2.9)
+log10_epsilon_e = Uniform(minimum=-3., maximum=-0.3)
+log10_epsilon_B = Uniform(minimum=-5., maximum=-0.5)
+xi_N = 1.0
+luminosity_distance = 350.0
+timeshift = 0.0
+"""
+COMBINED_INJECTION = {"log10_mej": -1.3, "log10_vej": -1.1, "beta": 3.0,
+                      "log10_kappa_r": 0.8, "log10_E0": 51.0,
+                      "thetaCore": 0.1, "thetaWing": 0.3,
+                      "inclination_EM": 0.05, "log10_n0": -1.5, "p": 2.4,
+                      "log10_epsilon_e": -1.2, "log10_epsilon_B": -3.0,
+                      "xi_N": 1.0, "luminosity_distance": 350.0,
+                      "timeshift": 0.0}
+# f32 operations that K3's function needs, an FMA counted as two and a sin,
+# exp or log as one, from the steps of csrc/grb_eats.cu: per (live point,
+# ring, phi, r) the arrival-time map, its log, the cummax and the cap at 60;
+# per (live point, ring, phi, t) query the in-range test. A query out of
+# range carries no flux and needs nothing more; one in range needs a search
+# of the monotone log-time row (a compare and a select per step), the two
+# hat nodes that can be nonzero (coefficients, hat and six sums each) and
+# the Doppler/synchrotron epilogue, with its per-filter part and the phi sum
+K3_OPS_MAP = 11
+K3_OPS_RANGE = 2
+K3_OPS_SEARCH_STEP = 2
+K3_OPS_NODE = 24
+K3_OPS_PAIR = 52
+K3_OPS_PAIR_F = 9
+# what the kernel's dense hat loop does instead, printed beside the bound:
+# per (live point, ring, phi, t, r), and the hat coefficients per (live
+# point, ring, phi, r)
+K3_OPS_DENSE = 18
+K3_OPS_DENSE_COEF = 6
 # peaks of one H100 SXM at 700 W (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -144,8 +233,9 @@ def throughput(torch, fn, rounds=5, round_s=0.4, warmup=3):
     return 1e3 * seconds / calls, calls, per_round
 
 
-def device_profile(torch, fn):
-    """(device-busy ms, kernel launches, top kernels) of one ``fn()`` under
+def device_profile(torch, fn, kernel=None):
+    """(device-busy ms, kernel launches, top kernels, device ms of the
+    kernels whose name contains ``kernel``) of one ``fn()`` under
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,19 +247,24 @@ def device_profile(torch, fn):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+    named_ms = sum(e.self_device_time_total for e in dev
+                   if kernel and kernel in e.key) / 1e3
     return busy_ms, sum(e.count for e in dev), ";".join(
-        f"{e.key[:40]}:{e.self_device_time_total / 1e3:.4f}" for e in top)
+        f"{e.key[:40]}:{e.self_device_time_total / 1e3:.4f}" for e in top), \
+        named_ms
 
 
-def synthetic_photometry(np, torch, model, filters, path, injection):
-    """Injection light curve of one of the port's models, ~10 epochs per
-    filter in 0.5-12 d with seeded noise and a few upper limits, written as
-    a .dat file in MJD."""
+def synthetic_photometry(np, torch, model, filters, path, injection,
+                         sample_times, epochs):
+    """Injection light curve of one of the port's models on the grid
+    ``geomspace(*sample_times)``: 10 epochs per filter drawn in ``epochs``
+    (days) with seeded noise and a few upper limits, written as a .dat
+    file in MJD."""
     from nmma_tpu_torch.io import write_em_observations
     from nmma_tpu_torch.models import DetectorLightCurveModel
 
     detector = DetectorLightCurveModel(
-        model, filters, sample_times=np.geomspace(0.01, 14.0, 150),
+        model, filters, sample_times=np.geomspace(*sample_times),
         device=DEVICE)
     params = {k: torch.tensor([v], device=DEVICE)
               for k, v in injection.items()}
@@ -179,7 +274,7 @@ def synthetic_photometry(np, torch, model, filters, path, injection):
     rng = np.random.default_rng(2017)
     data = {}
     for i, f in enumerate(filters):
-        t = np.sort(rng.uniform(0.5, 12.0, 10))
+        t = np.sort(rng.uniform(epochs[0], epochs[1], 10))
         m = np.interp(t, t_obs, mags[i]) + rng.normal(0.0, 0.1, t.size)
         err = np.full(t.size, 0.1)
         if i % 3 == 0:      # last epoch of every third filter: upper limit
@@ -190,6 +285,17 @@ def synthetic_photometry(np, torch, model, filters, path, injection):
         data[f] = {"time": t + TRIGGER_MJD, "mag": m, "mag_error": err}
     write_em_observations(path, data, fmt="dat")
     return data
+
+
+def injection_units(priors, injection):
+    """The injection as a [1, ndim] point of the unit cube (Uniform
+    priors)."""
+    import torch
+
+    return torch.tensor([[
+        (injection[n] - priors[n].minimum)
+        / (priors[n].maximum - priors[n].minimum)
+        for n in priors.sampled_names]], device=DEVICE)
 
 
 def me2017_path(np, torch, gen, sample_times):
@@ -246,7 +352,8 @@ def me2017_path(np, torch, gen, sample_times):
         with open(prior_path, "w") as f:
             f.write(ME_PRIOR_TEXT)
         synthetic_photometry(np, torch, "Me2017", filters, data_path,
-                             ME_INJECTION)
+                             ME_INJECTION, sample_times=(0.01, 14.0, 150),
+                             epochs=(0.5, 12.0))
         cfg = EMAnalysisConfig(
             model="Me2017", prior_file=prior_path, light_curve_data=data_path,
             trigger_time=TRIGGER_MJD, data_tmax=12.5, error_budget=1.0,
@@ -279,7 +386,7 @@ def me2017_path(np, torch, gen, sample_times):
             torch, lambda: analysis.batched_logl(u))
         for b, ms in ((BATCH, logl_ms), (128, throughput(
                 torch, lambda: analysis.batched_logl(u[:128]))[0])):
-            busy, n_launch, top = device_profile(
+            busy, n_launch, top, _ = device_profile(
                 torch, lambda: analysis.batched_logl(u[:b]))
             say("me2017_profile", batch=b, wall_ms=f"{ms:.4f}",
                 device_busy_ms=f"{busy:.4f}",
@@ -307,12 +414,8 @@ def me2017_path(np, torch, gen, sample_times):
         allowed = LOGL_ATOL + LOGL_RTOL * logl_plain[kept].abs()
         if bool((dlogl > allowed).any()):
             raise RuntimeError(f"logL off the plain K2 by {float(dlogl.max())}")
-        priors = analysis.priors
-        inj_u = torch.tensor([[
-            (ME_INJECTION[n] - priors[n].minimum)
-            / (priors[n].maximum - priors[n].minimum)
-            for n in priors.sampled_names]], device=DEVICE)
-        logl_inj = float(analysis.batched_logl(inj_u)[0])
+        logl_inj = float(analysis.batched_logl(
+            injection_units(analysis.priors, ME_INJECTION))[0])
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("me2017_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
@@ -361,6 +464,320 @@ def me2017_path(np, torch, gen, sample_times):
         "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
     }
+
+
+def k3_queries_in_range(torch, ops, rows=256):
+    """K3's (live point, ring, phi, t) queries whose log_q lies in
+    [log_t[0], log_t[-1]], the ones that carry flux, counted on the card
+    in chunks of `rows` live points."""
+    from nmma_tpu_torch.constants import c_cgs
+    from nmma_tpu_torch.ops.grb_kernel import one_minus_mu
+
+    t_delay, tracks, r_grid, scal, log_q, cphi = ops[:6]
+    count = 0
+    for s in range(0, t_delay.shape[0], rows):
+        sc = scal[s:s + rows, :, None, None, None]           # [b, 8, 1, 1, 1]
+        th_r = torch.exp(tracks[s:s + rows, 4])[:, :, None, :]
+        t_obs = (1.0 + sc[:, 0]) * (
+            t_delay[s:s + rows, :, None, :]
+            + one_minus_mu(sc[:, 4], sc[:, 2], th_r, cphi[:, None])
+            * r_grid[s:s + rows, None, None, :] / c_cgs)     # [b, Th, Ph, R]
+        log_t = torch.log(torch.clamp(t_obs, min=1e-10))
+        lo = torch.clamp(log_t[..., :1], max=60.0)
+        hi = torch.clamp(log_t.amax(-1, keepdim=True), max=60.0)
+        count += int(((log_q >= lo) & (log_q <= hi)).sum())
+    return count
+
+
+def grb_path(np, torch, gen):
+    """Phases 9-11: K3 against its plain version, then the TrPi2018 main
+    path (BASELINE config 3) through EMAnalysis.batched_logl and the
+    sampler. Returns K3's entry of the kernel line."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.inference import NestedSamplerConfig
+    from nmma_tpu_torch.models import grb
+    from nmma_tpu_torch.ops import grb_kernel as k3
+    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
+
+    def reset():
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = k3.LAUNCHES = 0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grb_") as tmp:
+        data_path = os.path.join(tmp, "injection.dat")
+        prior_path = os.path.join(tmp, "trpi2018.prior")
+        with open(prior_path, "w") as f:
+            f.write(GRB_PRIOR_TEXT)
+        synthetic_photometry(np, torch, "TrPi2018", GRB_FILTERS, data_path,
+                             GRB_INJECTION, sample_times=(0.05, 40.0, 64),
+                             epochs=(0.1, 30.0))
+        cfg = EMAnalysisConfig(
+            model="TrPi2018", prior_file=prior_path,
+            light_curve_data=data_path, trigger_time=TRIGGER_MJD, tmin=0.05,
+            tmax=40.0, n_tsteps=64, error_budget=0.5, filters=GRB_FILTERS,
+            outdir=os.path.join(tmp, "outdir"), label="chip_smoke_grb",
+            sampler=NestedSamplerConfig(nlive=512, n_delete=64, walks=16,
+                                        max_iter=40, max_seconds=90.0))
+        analysis = EMAnalysis(cfg, device=DEVICE)
+        t_grid = grb.trpi2018_time_grid(analysis.model.sample_times)
+
+        def operands(b):
+            """K3's operands for b config-3 prior draws at full width."""
+            p = analysis.model.prepare_parameters(analysis.priors.transform(
+                analysis.priors.sample_units(gen, b)))
+            p.setdefault("d_L", 3.086e19)
+            nu_obs = analysis.model.nu_0s[None].expand(b, -1)
+            return grb.grb_stage1(t_grid, nu_obs, p)[0]
+
+        # 9. K3 against its plain version at the main path's shapes
+        max_rel = max_abs = 0.0
+        for b in (1, 64, 257):
+            ops = operands(b)
+            got = k3.eats_flux(*ops)
+            want = k3.eats_flux_plain(*ops)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            rel = float(((got - want).abs() / torch.clamp(
+                want.abs(), min=1e-6 * scale)).max())
+            if got.shape != want.shape or not math.isfinite(rel) \
+                    or rel > K3_TOL or not torch.isfinite(got).all():
+                raise RuntimeError(f"K3 disagrees at B={b}: max relative "
+                                   f"error {rel} (tolerance {K3_TOL})")
+            max_rel = max(max_rel, rel)
+            max_abs = max(max_abs, float((got - want).abs().max()))
+            say("k3", batch=b, shape="x".join(map(str, got.shape)),
+                max_rel_err=f"{rel:.3e}", max_abs_err=f"{max_abs:.3e}",
+                ref_max=f"{scale:.4e}")
+        # a shape the kernel is not built for is refused before a launch
+        launched = k3.LAUNCHES
+        wide = [o.repeat_interleave(3, dim=-1).contiguous() if i < 3 else o
+                for i, o in enumerate(ops)]
+        refused = False
+        try:
+            k3.eats_flux(*wide)
+        except ValueError:
+            refused = True
+        if not refused or k3.LAUNCHES != launched:
+            raise RuntimeError(f"K3 took R={wide[0].shape[-1]}, beyond the "
+                               "shapes it is built for")
+        ops = operands(BATCH)
+        k3_ms = time_ms(torch, lambda: k3.eats_flux(*ops), rounds=5,
+                        launches=2, warmup=1)
+        k3_plain_ms = time_ms(torch, lambda: k3.eats_flux_plain(*ops),
+                              rounds=1, launches=1, warmup=1)
+        n_b, n_th, n_r = ops[0].shape
+        n_t, n_phi, n_f = ops[4].shape[0], ops[5].shape[0], ops[7].shape[1]
+        queries = n_b * n_th * n_phi * n_t
+        in_range = k3_queries_in_range(torch, ops)
+        map_ops = n_b * n_th * n_phi * n_r * K3_OPS_MAP
+        n_ops = (map_ops + queries * K3_OPS_RANGE
+                 + in_range * (K3_OPS_SEARCH_STEP * math.ceil(math.log2(n_r))
+                               + 2 * K3_OPS_NODE + K3_OPS_PAIR
+                               + K3_OPS_PAIR_F * n_f))
+        dense_ops = (map_ops + n_b * n_th * n_phi * n_r * K3_OPS_DENSE_COEF
+                     + queries * (K3_OPS_DENSE * n_r + K3_OPS_PAIR
+                                  + K3_OPS_PAIR_F * n_f))
+        n_bytes = 4.0 * (sum(t.numel() for t in ops)
+                         + n_b * n_th * n_f * n_t)
+        k3_bound_ms = 1e3 * max(n_ops / PEAK_F32_FLOPS,
+                                n_bytes / PEAK_BYTES)
+        k3_bound_by = "operations" if n_ops / PEAK_F32_FLOPS >= \
+            n_bytes / PEAK_BYTES else "bytes"
+        say("k3", batch=BATCH, kernel_ms=f"{k3_ms:.4f}",
+            plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound_ms:.4f}",
+            bound_by=k3_bound_by, gops=f"{n_ops / 1e9:.3f}",
+            mbytes=f"{n_bytes / 1e6:.3f}",
+            queries_in_range=f"{in_range}/{queries}",
+            dense_loop_gops=f"{dense_ops / 1e9:.3f}",
+            dense_loop_bound_ms=f"{1e3 * dense_ops / PEAK_F32_FLOPS:.4f}",
+            shape=f"B{n_b}xTh{n_th}xPh{n_phi}xT{n_t}xR{n_r}xF{n_f}")
+        del ops
+
+        # 10. the TrPi2018 main path: photometry file -> batched_logl
+        u = analysis.priors.sample_units(gen, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        reset()
+        logl = analysis.batched_logl(u)
+        torch.cuda.synchronize()
+        logl_launches = k3.LAUNCHES
+        if logl_launches != 1 or svd_kernel.LAUNCHES != 0 \
+                or me2017_kernel.LAUNCHES != 0:
+            raise RuntimeError(
+                f"TrPi2018 batched_logl launched K3 {logl_launches} times, "
+                f"K1 {svd_kernel.LAUNCHES} and K2 {me2017_kernel.LAUNCHES} "
+                "times, not once, never and never")
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if logl.shape != (BATCH,) or torch.isnan(logl).any():
+            raise RuntimeError(f"bad batched_logl output {logl.shape}")
+        usable = logl > -1e29
+        finite_share = float(usable.float().mean())
+        if finite_share < 0.5:
+            raise RuntimeError(f"only {finite_share:.3f} of logL finite")
+        logl_ms, logl_calls, round_ms = throughput(
+            torch, lambda: analysis.batched_logl(u), warmup=1)
+        walk = cfg.sampler.n_delete
+        for b, ms in ((BATCH, logl_ms), (walk, throughput(
+                torch, lambda: analysis.batched_logl(u[:walk]))[0])):
+            busy, n_launch, top, k3_dev = device_profile(
+                torch, lambda: analysis.batched_logl(u[:b]),
+                kernel="grb_eats")
+            say("grb_profile", batch=b, wall_ms=f"{ms:.4f}",
+                device_busy_ms=f"{busy:.4f}",
+                idle_share=f"{1.0 - busy / ms:.4f}",
+                kernel_launches=n_launch, k3_device_ms=f"{k3_dev:.4f}",
+                top=top)
+
+        # the same batch with the plain K3 on the card
+        n_cmp = 1024
+        kernel_fn = k3.eats_flux
+        k3.eats_flux = k3.eats_flux_plain
+        try:
+            logl_plain = analysis.batched_logl(u[:n_cmp])
+        finally:
+            k3.eats_flux = kernel_fn
+        if not torch.equal(usable[:n_cmp], logl_plain > -1e29):
+            raise RuntimeError("sentinel positions differ from the plain K3")
+        kept = usable[:n_cmp]
+        dlogl = (logl[:n_cmp] - logl_plain)[kept].abs()
+        allowed = LOGL_ATOL + LOGL_RTOL * logl_plain[kept].abs()
+        if bool((dlogl > allowed).any()):
+            raise RuntimeError(f"logL off the plain K3 by {float(dlogl.max())}")
+        logl_inj = float(analysis.batched_logl(
+            injection_units(analysis.priors, GRB_INJECTION))[0])
+        if not logl_inj > float(logl[usable].median()):
+            raise RuntimeError(f"injection logL {logl_inj} below the median")
+        say("grb_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
+            k3_launches=logl_launches, k1_launches=svd_kernel.LAUNCHES,
+            k2_launches=me2017_kernel.LAUNCHES, calls=logl_calls,
+            wall_ms=f"{logl_ms:.4f}",
+            evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+            evals_per_s_rounds=",".join(
+                f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
+            peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+            compared=n_cmp,
+            max_abs_dlogl_vs_plain=f"{float(dlogl.max()):.3e}",
+            logl_injection=f"{logl_inj:.3f}",
+            logl_median=f"{float(logl[usable].median()):.3f}")
+
+        # 11. the nested sampler with config 3's settings
+        t0 = time.time()
+        reset()
+        result = analysis.run(verbose=False)
+        torch.cuda.synchronize()
+        launches = k3.LAUNCHES
+        seconds = time.time() - t0
+        if not math.isfinite(result.logz):
+            raise RuntimeError(f"TrPi2018 logZ not finite: {result.logz}")
+        expected = 1 + result.niter * cfg.sampler.walks
+        if launches != expected or launches <= 0 \
+                or svd_kernel.LAUNCHES != 0 or me2017_kernel.LAUNCHES != 0:
+            raise RuntimeError(
+                f"the TrPi2018 sampler launched K3 {launches} times "
+                f"(expected {expected}), K1 {svd_kernel.LAUNCHES} and K2 "
+                f"{me2017_kernel.LAUNCHES} times")
+        for suffix in ("_result.npz", "_result_meta.json",
+                       "_posterior_samples.csv", "_bestfit_params.json"):
+            if not os.path.exists(os.path.join(cfg.outdir,
+                                               cfg.label + suffix)):
+                raise RuntimeError(f"missing result file {suffix}")
+        say("grb_sampler", logz=f"{result.logz:.4f}",
+            logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+            likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
+            k3_launches=launches, k1_launches=svd_kernel.LAUNCHES,
+            k2_launches=me2017_kernel.LAUNCHES)
+
+    return {
+        "name": "grb_eats_flux", "route": "cuda",
+        "source": "nmma_tpu_torch/csrc/grb_eats.cu",
+        "replaces": "nmma_tpu/ops/pallas_grb.py:47",
+        "launches": launches, "launches_batched_logl": logl_launches,
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "ms": k3_ms, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
+    }
+
+
+def combined_logl(np, torch, gen):
+    """Phase 12: Me2017 + TrPi2018 through make_combined_source_model, one
+    batched_logl at B = 1024 through K2 and K3, against the plain K2 and K3
+    off the live points where the plain K2 sees a near-tie."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.models import (get_source_model,
+                                       make_combined_source_model)
+    from nmma_tpu_torch.ops import grb_kernel as k3
+    from nmma_tpu_torch.ops import me2017_kernel as k2
+    from nmma_tpu_torch.ops import svd_kernel
+
+    model = "Me2017_TrPi2018_smoke"
+    make_combined_source_model(model, [get_source_model("Me2017"),
+                                       get_source_model("TrPi2018")])
+    filters = ["ztfg", "ztfr", "ztfi", "2massks", "X-ray-1keV",
+               "radio-6GHz"]
+    n_b = 1024
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_combined_") as tmp:
+        data_path = os.path.join(tmp, "injection.dat")
+        prior_path = os.path.join(tmp, "combined.prior")
+        with open(prior_path, "w") as f:
+            f.write(COMBINED_PRIOR_TEXT)
+        synthetic_photometry(np, torch, model, filters, data_path,
+                             COMBINED_INJECTION,
+                             sample_times=(0.02, 40.0, 100),
+                             epochs=(0.5, 12.0))
+        cfg = EMAnalysisConfig(
+            model=model, prior_file=prior_path, light_curve_data=data_path,
+            trigger_time=TRIGGER_MJD, tmin=0.02, tmax=40.0, n_tsteps=100,
+            error_budget=1.0, filters=filters)
+        analysis = EMAnalysis(cfg, device=DEVICE)
+        u = analysis.priors.sample_units(gen, n_b)
+        svd_kernel.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+        logl = analysis.batched_logl(u)
+        torch.cuda.synchronize()
+        launches = (svd_kernel.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES)
+        if launches != (0, 1, 1):
+            raise RuntimeError(f"the combined batched_logl launched (K1, K2, "
+                               f"K3) {launches} times, not (0, 1, 1)")
+        if logl.shape != (n_b,) or torch.isnan(logl).any():
+            raise RuntimeError(f"bad batched_logl output {logl.shape}")
+        usable = logl > -1e29
+        finite_share = float(usable.float().mean())
+        if finite_share < 0.5:
+            raise RuntimeError(f"only {finite_share:.3f} of logL finite")
+
+        kernels = (k2.me2017_dynamics_from_operands, k3.eats_flux)
+        k2.me2017_dynamics_from_operands = k2.me2017_dynamics_plain
+        k3.eats_flux = k3.eats_flux_plain
+        try:
+            logl_plain = analysis.batched_logl(u)
+        finally:
+            k2.me2017_dynamics_from_operands, k3.eats_flux = kernels
+        p = analysis.priors.transform(u)
+        gap = k2.me2017_dynamics_plain(*k2.me2017_operands(
+            p["log10_mej"], p["log10_vej"], p["beta"],
+            10.0 ** p["log10_kappa_r"], analysis.model.sample_times),
+            with_ties=True)[2]
+        keep = ~(gap < k2.NEAR_TIE).any(dim=1)
+        if not torch.equal(usable[keep], (logl_plain > -1e29)[keep]):
+            raise RuntimeError("sentinel positions differ from the plain "
+                               "K2 and K3")
+        kept = usable & keep
+        dlogl = (logl - logl_plain)[kept].abs()
+        allowed = LOGL_ATOL + LOGL_RTOL * logl_plain[kept].abs()
+        if bool((dlogl > allowed).any()):
+            raise RuntimeError(f"combined logL off the plain kernels by "
+                               f"{float(dlogl.max())}")
+        logl_inj = float(analysis.batched_logl(
+            injection_units(analysis.priors, COMBINED_INJECTION))[0])
+        if not logl_inj > float(logl[usable].median()):
+            raise RuntimeError(f"injection logL {logl_inj} below the median")
+        say("combined_logl", batch=n_b, finite_share=f"{finite_share:.4f}",
+            k1_launches=launches[0], k2_launches=launches[1],
+            k3_launches=launches[2],
+            tie_samples_dropped=int((~keep).sum()),
+            max_abs_dlogl_vs_plain=f"{float(dlogl.max()):.3e}",
+            max_rel_dlogl_vs_plain=f"{float((dlogl / logl_plain[kept].abs().clamp(min=1.0)).max()):.3e}",
+            logl_injection=f"{logl_inj:.3f}",
+            logl_median=f"{float(logl[usable].median()):.3f}")
 
 
 def main() -> int:
@@ -444,7 +861,8 @@ def main() -> int:
         with open(prior_path, "w") as f:
             f.write(PRIOR_TEXT)
         synthetic_photometry(np, torch, MODEL, list(svd.filters), data_path,
-                             INJECTION)
+                             INJECTION, sample_times=(0.01, 14.0, 150),
+                             epochs=(0.5, 12.0))
 
         cfg = EMAnalysisConfig(
             model=MODEL, prior_file=prior_path, light_curve_data=data_path,
@@ -476,7 +894,7 @@ def main() -> int:
         # time, at this batch and at the sampler's walk batch
         for b, ms in ((BATCH, logl_ms), (128, throughput(
                 torch, lambda: analysis.batched_logl(u[:128]))[0])):
-            busy, n_launch, top = device_profile(
+            busy, n_launch, top, _ = device_profile(
                 torch, lambda: analysis.batched_logl(u[:b]))
             say("profile", batch=b, wall_ms=f"{ms:.4f}",
                 device_busy_ms=f"{busy:.4f}",
@@ -497,12 +915,8 @@ def main() -> int:
         if bool((dlogl > allowed).any()):
             raise RuntimeError(f"logL off the plain K1 by {float(dlogl.max())}")
         # the injection must fit better than a typical prior draw
-        priors = analysis.priors
-        inj_u = torch.tensor([[
-            (INJECTION[n] - priors[n].minimum)
-            / (priors[n].maximum - priors[n].minimum)
-            for n in priors.sampled_names]], device=DEVICE)
-        logl_inj = float(analysis.batched_logl(inj_u)[0])
+        logl_inj = float(analysis.batched_logl(
+            injection_units(analysis.priors, INJECTION))[0])
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
@@ -542,6 +956,8 @@ def main() -> int:
             k1_launches=launches)
 
     k2_entry = me2017_path(np, torch, gen, sample_times)
+    k3_entry = grb_path(np, torch, gen)
+    combined_logl(np, torch, gen)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
@@ -550,7 +966,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }, k2_entry]
+    }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -35,6 +35,11 @@ KERNELS = {
         "nmma_me2017_dynamics": (_I, [_P] * 5 + [_I] * 4 + [_P]),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "grb_eats": ("grb_eats.cu", {
+        "nmma_grb_eats": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+        "nmma_grb_eats_supported": (_I, [ctypes.c_longlong] + [_I] * 5),
+        "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -46,6 +46,9 @@ class EMAnalysisConfig:
     remove_nondetections: bool = False
     outdir: str = "outdir"
     label: str = "injection"
+    # static options forwarded to the source model (only the keys its
+    # mags_fn accepts), e.g. jet_type or n_theta/n_phi/n_r of TrPi2018
+    model_kwargs: dict = field(default_factory=dict)
     sampler: NestedSamplerConfig = field(default_factory=NestedSamplerConfig)
 
 
@@ -88,7 +91,8 @@ class EMAnalysis:
             sample_times = np.geomspace(cfg.tmin, cfg.tmax, cfg.n_tsteps)
         self.model = DetectorLightCurveModel(
             cfg.model, self.filters, sample_times=sample_times,
-            extinction_law=cfg.extinction_law, device=self.device)
+            extinction_law=cfg.extinction_law,
+            model_kwargs=cfg.model_kwargs, device=self.device)
 
         if priors is None:
             priors = adjust_priors_for_nmma(load_prior_file(cfg.prior_file))

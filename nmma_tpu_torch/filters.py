@@ -8,16 +8,18 @@ the table is frozen to plain floats (sncosmo ``wave_eff`` values) so filter
 resolution is a host-side dictionary lookup and the device only ever sees a
 static ``nu_0`` vector.
 
-Wavelengths in metres; ``nu = c / lambda`` in Hz. The port keeps the
-optical/NIR tables; the radio and X-ray names of the GRB models wait for the
-GRB slice.
+Wavelengths in metres; ``nu = c / lambda`` in Hz. Radio and X-ray names
+(``radio-6GHz``, ``X-ray-1keV``, any ``radio-<value><unit>``) resolve to
+their frequency.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
-from .constants import c_SI
+from .constants import c_SI, eV_per_h_SI
 
 # ---------------------------------------------------------------------------
 # Core generic filters (values copied from the reference's frozen arrays,
@@ -79,6 +81,38 @@ _SNCOSMO_LAMBDAS_AA = {
     "uks": 3561.8,
 }
 
+_RADIO_XRAY_DEFAULTS = {
+    "radio-1.25GHz": 1.25e9, "radio-3GHz": 3e9,
+    "radio-5.5GHz": 5.5e9, "radio-6GHz": 6e9,
+    "X-ray-1keV": 1e3 * eV_per_h_SI, "X-ray-5keV": 5e3 * eV_per_h_SI,
+}
+
+_UNIT_SCALES = {"GHz": 1e9, "MHz": 1e6, "kHz": 1e3, "THz": 1e12, "keV": 1e3,
+                "MeV": 1e6, "GeV": 1e9}
+
+
+def _parse_band_frequency(name: str):
+    """Frequency [Hz] for 'radio-<val><unit>' / 'X-ray-<val><unit>' names
+    (``extract_unit``, nmma/em/utils.py:784-792), or None."""
+    for prefix in ("radio-", "X-ray-"):
+        if name.startswith(prefix):
+            rest = name[len(prefix):]
+            match = re.fullmatch(r"([0-9.]+)([A-Za-z]+)", rest)
+            if not match:
+                return None
+            val, unit = float(match.group(1)), match.group(2)
+            if unit == "Hz":
+                return val
+            if unit == "eV":
+                return val * eV_per_h_SI
+            scale = _UNIT_SCALES.get(unit)
+            if scale is None:
+                return None
+            # eV-family units convert via photon energy; Hz-family directly
+            return val * scale * (eV_per_h_SI if unit.endswith("eV") else 1.0)
+    return None
+
+
 def effective_wavelength(name: str) -> float:
     """Effective wavelength [m] for a filter name. Raises KeyError if unknown."""
     lname = name
@@ -89,6 +123,11 @@ def effective_wavelength(name: str) -> float:
     low = lname.lower()
     if low in _SNCOSMO_LAMBDAS_AA:
         return _SNCOSMO_LAMBDAS_AA[low] * _ANGSTROM
+    if lname in _RADIO_XRAY_DEFAULTS:
+        return c_SI / _RADIO_XRAY_DEFAULTS[lname]
+    freq = _parse_band_frequency(lname)
+    if freq is not None:
+        return c_SI / freq
     raise KeyError(f"Unknown filter {name!r}; extend nmma_tpu_torch.filters tables.")
 
 
@@ -255,6 +294,8 @@ def resolve_filter(observed: str, available=None):
         return "direct", observed
     if observed in _SYNONYMS:
         return "direct", _SYNONYMS[observed]
+    if observed.startswith("radio") or observed.startswith("X-ray"):
+        return "direct", observed
     if observed in COMPOSITE_FILTERS:
         return "average", COMPOSITE_FILTERS[observed]
     if observed.lower() in _GENERIC_MODEL_FILTERS:

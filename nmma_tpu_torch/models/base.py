@@ -16,6 +16,7 @@ dimension where the JAX package vmaps a per-sample function.
 
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass
 from typing import Callable, Sequence
@@ -79,6 +80,8 @@ class SourceModel:
     # magnitudes instead of point sampling at the effective wavelength;
     # the reference integrates via sncosmo, nmma/em/model.py:1121-1180)
     banded: bool = False
+    # mags_fn also takes the detector's filter names (``filters=``)
+    needs_filters: bool = False
     # filter rows the function emits; None => it follows the requested
     # filters. SVD surrogates are trained per filter, so their rows are fixed
     # and get gathered/inf-filled to the requested set (reference
@@ -89,6 +92,17 @@ class SourceModel:
         if self.default_time_grid is not None:
             return self.default_time_grid()
         return np.geomspace(0.01, 14.0, 150)
+
+
+def _filter_kwargs(fn, kwargs: dict) -> dict:
+    """Keep only the kwargs ``fn``'s signature accepts (or all on **kw)."""
+    if not kwargs:
+        return {}
+    sig = inspect.signature(fn)
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD
+           for p in sig.parameters.values()):
+        return dict(kwargs)
+    return {k: v for k, v in kwargs.items() if k in sig.parameters}
 
 
 _SOURCE_MODELS: dict[str, SourceModel] = {}
@@ -112,12 +126,14 @@ class DetectorLightCurveModel:
 
     Static configuration (filters, time grid, cosmology tables, quadrature)
     lives on the object as tensors on ``device`` (the CUDA card unless the
-    caller passes one).
+    caller passes one). ``model_kwargs`` are static options of the source
+    model (e.g. ``jet_type`` or ``n_theta`` of TrPi2018); only those its
+    ``mags_fn`` accepts are forwarded, so one config can drive mixed models.
     """
 
     def __init__(self, model, filters: Sequence[str], sample_times=None,
                  cosmology=None, extinction_law: str = "P92_SMC_host",
-                 device=None):
+                 model_kwargs: dict | None = None, device=None):
         self.device = resolve_device(device)
         if isinstance(model, str):
             model = get_source_model(model)
@@ -139,6 +155,8 @@ class DetectorLightCurveModel:
                 if h not in self.filters and h not in extra:
                     extra.append(h)
         self.filters += extra
+        self.model_kwargs = _filter_kwargs(self.source.mags_fn,
+                                           model_kwargs or {})
 
         def f32(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -188,10 +206,12 @@ class DetectorLightCurveModel:
         z = p["redshift"]
         p["distance_modulus"] = distance_modulus(p["luminosity_distance"])
         nu_host = self.nu_0s[None, :] * (1.0 + z)[:, None]
-        extra = {}
+        extra = dict(self.model_kwargs)
         if self.source.banded:
-            extra = {"nu_nodes": self.nu_nodes[None] * (1.0 + z)[:, None, None],
-                     "nu_weights": self.nu_weights}
+            extra["nu_nodes"] = self.nu_nodes[None] * (1.0 + z)[:, None, None]
+            extra["nu_weights"] = self.nu_weights
+        if self.source.needs_filters:
+            extra["filters"] = self.filters
         mags = self.source.mags_fn(p, t, nu_host, **extra)   # [B, F_src, T]
 
         if self._rows is not None:

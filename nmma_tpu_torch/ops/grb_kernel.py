@@ -1,0 +1,210 @@
+"""K3, the GRB equal-arrival-time-surface (EATS) stage: CUDA kernel and plain
+version.
+
+Replaces ``eats_flux_pallas`` (``nmma_tpu/ops/pallas_grb.py:178``, kernel
+``_eats_kernel`` :47). For each live point and theta ring, the ring's five
+log dynamical tracks (Lorentz factor, nu_m', nu_c', emission, ring angle),
+tabulated on R radii, are resampled onto the observer times of every phi
+element of the equal-arrival-time surface by a hat basis in log time; the
+Doppler factor and the SPN98 synchrotron spectrum then give the element's
+flux at each frequency, summed over phi with the quadrature weights. The
+semantics are those of ``_eats_stage2_xla`` in its "fused" mode
+(``nmma_tpu/models/grb.py:510-647``): an f32 hat normalised by
+``max(hat_sum, 1)``, and no emission where ``log_q`` lies outside
+``[log_t[0], log_t[-1]]`` (``grb.py:606``).
+
+The plain version repeats that function batch-first, in chunks of
+(live point, ring) rows so that its dense [rows, Ph, T, R] hat stays under
+about 1 GB. The CUDA kernel (``csrc/grb_eats.cu``) builds the arrival-time
+map, its cummax and the hat in shared memory and registers, and sums the
+same products over R in another order.
+
+CUDA tensors go to the kernel and CPU tensors to the plain version; there is
+no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from ..constants import c_cgs
+
+# launches of the CUDA kernel since the count was last set to 0
+LAUNCHES = 0
+
+N_TRACKS = 5
+N_SCAL = 8
+# elements of the plain version's dense hat per chunk: 2^26 f32 = 256 MB,
+# about 1 GB with the temporaries that live beside it
+_HAT_ELEMENTS = 1 << 26
+
+
+def one_minus_mu(theta_v, sin_tv, th, cphi):
+    """1 - mu without cancellation near mu = 1:
+    2 sin^2((theta_v - th)/2) + sin(theta_v) sin(th) (1 - cos(phi))."""
+    return (2.0 * torch.sin(0.5 * (theta_v - th)) ** 2
+            + sin_tv * torch.sin(th) * (1.0 - cphi))
+
+
+def synchrotron_shape(nu, nu_m, nu_c, p):
+    """Broken power-law synchrotron spectrum (SPN98), slow + fast cooling
+    (``_synchrotron_shape``, nmma_tpu/models/grb.py:694)."""
+    slow = torch.where(
+        nu < nu_m,
+        torch.pow(nu / nu_m, 1.0 / 3.0),
+        torch.where(nu < nu_c,
+                    torch.pow(nu / nu_m, -(p - 1.0) / 2.0),
+                    torch.pow(nu_c / nu_m, -(p - 1.0) / 2.0)
+                    * torch.pow(nu / nu_c, -p / 2.0)))
+    fast = torch.where(
+        nu < nu_c,
+        torch.pow(nu / nu_c, 1.0 / 3.0),
+        torch.where(nu < nu_m,
+                    torch.pow(nu / nu_c, -0.5),
+                    torch.pow(nu_m / nu_c, -0.5)
+                    * torch.pow(nu / nu_m, -p / 2.0)))
+    return torch.where(nu_m <= nu_c, slow, fast)
+
+
+def _eats_rows(t_delay, tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
+    """The EATS stage for N independent (live point, ring) rows:
+    t_delay [N, R], tracks [N, 5, R], r_grid [N, R], scal [N, 8],
+    nu_obs [N, F] -> phi-summed flux [N, F, T]."""
+    n, n_r = t_delay.shape
+    n_t, n_phi = log_q.shape[0], cphi.shape[0]
+    col = scal[:, :, None, None]                            # [N, 8, 1, 1]
+    z, sin_tv, p, theta_v = col[:, 0], col[:, 2], col[:, 3], col[:, 4]
+    one_p_z = 1.0 + z                                       # [N, 1, 1]
+    cphi_r = cphi[None, :, None]                            # [1, Ph, 1]
+
+    # arrival times follow the (possibly moving) ring material
+    th_r = torch.exp(tracks[:, 4])[:, None, :]              # [N, 1, R]
+    t_obs = one_p_z * (t_delay[:, None, :] + one_minus_mu(
+        theta_v, sin_tv, th_r, cphi_r) * r_grid[:, None, :] / c_cgs)
+    log_t = torch.log(torch.clamp(t_obs, min=1e-10))
+    log_t = torch.clamp(torch.cummax(log_t, dim=-1).values, max=60.0)
+    x_l = torch.cat([log_t[..., :1], log_t[..., :-1]], dim=-1)
+    x_r = torch.cat([log_t[..., 1:], log_t[..., -1:]], dim=-1)
+    dl = torch.clamp(log_t - x_l, min=1e-12)[:, :, None, :]
+    dr = torch.clamp(x_r - log_t, min=1e-12)[:, :, None, :]
+    lq = log_q[None, None, :, None]                         # [1, 1, T, 1]
+    up = (lq - x_l[:, :, None, :]) / dl                     # [N, Ph, T, R]
+    dn = (x_r[:, :, None, :] - lq) / dr
+    hat = torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
+    del up, dn
+    # the five tracks and a ones lane (the hat row sum), contracted over R
+    tr1 = torch.cat([tracks, torch.ones_like(tracks[:, :1])], dim=1)
+    raw = torch.bmm(hat.reshape(n, n_phi * n_t, n_r),
+                    tr1.transpose(1, 2)).reshape(n, n_phi, n_t, N_TRACKS + 1)
+    del hat
+    denom = torch.clamp(raw[..., N_TRACKS], min=1.0)
+    vals = torch.exp(raw[..., :N_TRACKS] / denom[..., None])
+    g, num, nuc, em50, th_t = vals.unbind(-1)               # [N, Ph, T] each
+    in_range = (log_q >= log_t[..., :1]) & (log_q <= log_t[..., -1:])
+    em50 = torch.where(in_range, em50, 0.0)
+
+    # Doppler pattern follows the resampled (moving) ring angle
+    omm = one_minus_mu(theta_v, sin_tv, th_t, cphi_r)
+    u2 = torch.clamp(g * g - 1.0, min=1e-12)
+    be = torch.sqrt(u2) / g
+    one_m_be = 1.0 / (g * g * (1.0 + be))   # 1 - beta, without cancellation
+    a_fac = one_m_be + be * omm                              # 1 - beta mu
+    doppler = 1.0 / (g * a_fac)
+    s_sh = torch.sqrt(1.0 + 1.0 / u2)
+    one_m_bs = (3.0 - 4.0 / (s_sh + 1.0)) / (4.0 * u2 + 3.0)
+    ashock = one_m_bs + (1.0 - one_m_bs) * omm               # 1 - beta_sh mu
+    nu_prime = (nu_obs[:, None, :, None] * one_p_z[..., None]
+                * (g * a_fac)[:, :, None, :])                # [N, Ph, F, T]
+    shape = synchrotron_shape(nu_prime, num[:, :, None, :],
+                              nuc[:, :, None, :], p[..., None])
+    flux = (one_p_z[..., None] * (doppler * doppler / ashock)[:, :, None, :]
+            * em50[:, :, None, :] * shape)
+    return (wphi[None, :, None, None] * flux).sum(dim=1)     # [N, F, T]
+
+
+def eats_flux_plain(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
+                    nu_obs):
+    """The kernel's function in PyTorch, in chunks of (live point, ring)
+    rows; the operands of :func:`eats_flux` -> [B, Th, F, T]."""
+    n_b, n_th, n_r = t_delay.shape
+    n_t, n_phi, n_f = log_q.shape[0], cphi.shape[0], nu_obs.shape[1]
+    rows = n_b * n_th
+    td = t_delay.reshape(rows, n_r)
+    tracks = log_tracks.transpose(1, 2).reshape(rows, N_TRACKS, n_r)
+    point = torch.arange(n_b, device=t_delay.device).repeat_interleave(n_th)
+    out = t_delay.new_empty((rows, n_f, n_t))
+    chunk = max(1, _HAT_ELEMENTS // (n_phi * n_t * n_r))
+    for s in range(0, rows, chunk):
+        e = min(rows, s + chunk)
+        idx = point[s:e]
+        out[s:e] = _eats_rows(td[s:e], tracks[s:e], r_grid[idx], scal[idx],
+                              log_q, cphi, wphi, nu_obs[idx])
+    return out.reshape(n_b, n_th, n_f, n_t)
+
+
+def _check_operands(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
+                    nu_obs):
+    named = (("t_delay", t_delay), ("log_tracks", log_tracks),
+             ("r_grid", r_grid), ("scal", scal), ("log_q", log_q),
+             ("cphi", cphi), ("wphi", wphi), ("nu_obs", nu_obs))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != t_delay.device:
+            raise ValueError(f"{name} is on {t.device}, t_delay on "
+                             f"{t_delay.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if t_delay.dim() != 3:
+        raise ValueError(f"t_delay has shape {tuple(t_delay.shape)}, "
+                         "expected (B, Th, R)")
+    n_b, n_th, n_r = t_delay.shape
+    n_t, n_phi = log_q.shape[0], cphi.shape[0]
+    n_f = nu_obs.shape[-1] if nu_obs.dim() == 2 else -1
+    expected = {"log_tracks": (n_b, N_TRACKS, n_th, n_r), "r_grid": (n_b, n_r),
+                "scal": (n_b, N_SCAL), "log_q": (n_t,), "cphi": (n_phi,),
+                "wphi": (n_phi,), "nu_obs": (n_b, n_f)}
+    for name, t in named[1:]:
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{expected[name]}")
+
+
+def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
+    """Batched [B, Th, F, T] phi-summed EATS flux elements: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
+
+    t_delay [B, Th, R], log_tracks [B, 5, Th, R], r_grid [B, R],
+    scal [B, 8] (z, cos theta_v, sin theta_v, p, theta_v, 0, 0, 0),
+    log_q [T], cphi/wphi [Ph] (phi nodes' cosines and weights) and
+    nu_obs [B, F] (observer-frame frequencies of each live point), all f32.
+    The signature of ``eats_flux_pallas`` with a per-sample ``nu_obs``.
+    """
+    global LAUNCHES
+    ops = (t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs)
+    _check_operands(*ops)
+    if t_delay.device.type == "cpu":
+        return eats_flux_plain(*ops)
+    if t_delay.device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {t_delay.device}")
+    n_b, n_th, n_r = t_delay.shape
+    n_t, n_phi, n_f = log_q.shape[0], cphi.shape[0], nu_obs.shape[1]
+    lib = _kernels.load("grb_eats")
+    if not lib.nmma_grb_eats_supported(n_b, n_th, n_r, n_t, n_phi, n_f):
+        raise ValueError(
+            f"K3 is not built for B={n_b}, Th={n_th}, R={n_r}, T={n_t}, "
+            f"Ph={n_phi}, F={n_f} (limits: nmma_grb_eats_supported in "
+            "csrc/grb_eats.cu)")
+    out = torch.empty((n_b, n_th, n_f, n_t), dtype=torch.float32,
+                      device=t_delay.device)
+    if n_b == 0:
+        return out
+    with torch.cuda.device(t_delay.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.nmma_grb_eats(
+            *(t.data_ptr() for t in ops), out.data_ptr(), n_b, n_th, n_r,
+            n_t, n_phi, n_f, t_delay.device.index, stream)
+    _kernels.check(lib, code, "grb_eats launch")
+    LAUNCHES += 1
+    return out

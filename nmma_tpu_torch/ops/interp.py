@@ -62,32 +62,37 @@ def masked_interp(xq, x, y, valid=None, left=None, right=None,
 
 
 def masked_interp_sorted_fill(xq, x, y, fill):
-    """Masked interpolation for ascending ``x``: each query uses its nearest
-    valid neighbours; queries outside the valid range get ``fill``."""
+    """Masked interpolation for ascending ``x`` [N]: each query of ``xq``
+    [Q] uses its nearest valid neighbours in ``y`` [..., N] (rows along the
+    last dimension); queries outside a row's valid range get ``fill``.
+    Returns [..., Q]."""
     n = x.shape[0]
     valid = torch.isfinite(y)
-    n_valid = valid.sum()
-    idx = torch.arange(n, device=x.device)
+    n_valid = valid.sum(-1, keepdim=True)
+    idx = torch.arange(n, device=x.device).expand_as(y)
     # nearest valid index at-or-before / at-or-after each grid index
-    left_of = torch.cummax(torch.where(valid, idx, -1), 0).values
+    left_of = torch.cummax(torch.where(valid, idx, -1), -1).values
     right_of = n - 1 - torch.flip(torch.cummax(
-        torch.flip(torch.where(valid, n - 1 - idx, -1), (0,)), 0).values,
-        (0,))
+        torch.flip(torch.where(valid, n - 1 - idx, -1), (-1,)), -1).values,
+        (-1,))
 
-    pos = torch.clamp((xq[..., None] >= x).sum(-1) - 1, 0, n - 1)
-    l_idx = left_of[pos]
-    r_idx = right_of[torch.clamp(pos + 1, 0, n - 1)]
+    def at(row, index):                     # row[..., index[..., Q]]
+        return torch.gather(row, -1, index.clamp(0, n - 1))
+
+    pos = torch.clamp((xq[..., None] >= x).sum(-1) - 1, 0, n - 1)     # [Q]
+    l_idx = left_of[..., pos]
+    r_idx = right_of[..., torch.clamp(pos + 1, 0, n - 1)]
     # a query beyond the last grid cell still needs the last valid point
-    r_idx = torch.where(pos >= n - 1, left_of[n - 1], r_idx)
+    r_idx = torch.where(pos >= n - 1, left_of[..., n - 1:], r_idx)
     l_ok = l_idx >= 0
     r_ok = (r_idx >= 0) & (r_idx <= n - 1)
-    x_l, y_l = x[l_idx.clamp(0, n - 1)], y[l_idx.clamp(0, n - 1)]
-    x_r, y_r = x[r_idx.clamp(0, n - 1)], y[r_idx.clamp(0, n - 1)]
+    x_l, y_l = x[l_idx.clamp(0, n - 1)], at(y, l_idx)
+    x_r, y_r = x[r_idx.clamp(0, n - 1)], at(y, r_idx)
     span = torch.where(x_r > x_l, x_r - x_l, 1.0)
     w = torch.clamp((xq - x_l) / span, 0.0, 1.0)
     est = torch.where(l_ok & r_ok, y_l + w * (y_r - y_l), fill)
-    x_first = x[right_of[0].clamp(0, n - 1)]
-    x_last = x[left_of[n - 1].clamp(0, n - 1)]
+    x_first = x[right_of[..., :1].clamp(0, n - 1)]
+    x_last = x[left_of[..., n - 1:].clamp(0, n - 1)]
     est = torch.where((xq < x_first) | (xq > x_last), fill, est)
     return torch.where(n_valid >= 2, est, fill)
 
