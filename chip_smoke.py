@@ -15,7 +15,8 @@ on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
 through K2 and K3:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
-  2. build    nvcc build of every kernel, all started together, in seconds;
+  2. build    nvcc build of every kernel, all started together, in seconds,
+              and ptxas's registers, stack and spills of each kernel;
   3. k1       K1 against its plain PyTorch version on the card at the main
               path's shapes (B = 1, 128, 8199; max abs error <= 1e-4 mag),
               then kernel and plain timings at B = 8192 (CUDA events, median
@@ -45,9 +46,16 @@ through K2 and K3:
               1 + iterations x walks, no K1 launch.
   9. k3       K3 against its plain version on the card on stage-1 operands
               of config-3 prior draws at B = 1, 64, 257 (max relative error
-              where |ref| > 1e-6 max|ref|, <= 5e-3); then the kernel's time
-              at B = 8192 (median of 5 rounds of 2 launches), the plain
-              version's (one call) and the bound;
+              where |ref| > 1e-6 max|ref|, <= 1e-4); then the kernel's time
+              at B = 8192 (median of 5 rounds of 2 launches), its time on
+              the same rows with every query moved above the cap (the map,
+              cummax and phi sum alone), the plain version's (one call) and
+              the bound; then [k3_edges]: K3 against its plain version on
+              hand-made rows (ops/grb_kernel.py edge_operands: cummax
+              plateaus, queries on a node, on a plateau value, at both ends
+              and outside the rows) at R = 100, 128, 256, T = 37, Ph = 5
+              and 16: within the same 1e-4, zeros in the same places, one
+              launch per call;
  10. grb_logl the same as phase 7 with TrPi2018 on config-3 photometry (one
               K3 launch, no K1 or K2 launch), with |dlogL| against the plain
               K3 at B = 1024 and the profile at B = 8192 and 64 with K3's
@@ -72,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -177,15 +186,29 @@ K3_OPS_SEARCH_STEP = 2
 K3_OPS_NODE = 24
 K3_OPS_PAIR = 52
 K3_OPS_PAIR_F = 9
-# what the kernel's dense hat loop does instead, printed beside the bound:
-# per (live point, ring, phi, t, r), and the hat coefficients per (live
-# point, ring, phi, r)
-K3_OPS_DENSE = 18
-K3_OPS_DENSE_COEF = 6
 # peaks of one H100 SXM at 700 W (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def ptxas_summary(report):
+    """registers, stack frame and spill bytes of each kernel entry in
+    nvcc's -Xptxas -v output, '/'-joined where a library has several."""
+    regs = re.findall(r"Used (\d+) registers", report)
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", report)
+    return {"registers": "/".join(regs),
+            "stack_bytes": "/".join(f[0] for f in frames),
+            "spill_store_bytes": "/".join(f[1] for f in frames),
+            "spill_load_bytes": "/".join(f[2] for f in frames)}
+
+
+def relative_error(torch, got, want):
+    """Max |got - want| / |want| where |want| > 1e-6 max|want|."""
+    scale = float(want.abs().max())
+    return float(((got - want).abs() / torch.clamp(
+        want.abs(), min=1e-6 * scale)).max())
 
 
 def say(phase, **fields):
@@ -536,8 +559,7 @@ def grb_path(np, torch, gen):
             want = k3.eats_flux_plain(*ops)
             torch.cuda.synchronize()
             scale = float(want.abs().max())
-            rel = float(((got - want).abs() / torch.clamp(
-                want.abs(), min=1e-6 * scale)).max())
+            rel = relative_error(torch, got, want)
             if got.shape != want.shape or not math.isfinite(rel) \
                     or rel > K3_TOL or not torch.isfinite(got).all():
                 raise RuntimeError(f"K3 disagrees at B={b}: max relative "
@@ -564,6 +586,13 @@ def grb_path(np, torch, gen):
                         launches=2, warmup=1)
         k3_plain_ms = time_ms(torch, lambda: k3.eats_flux_plain(*ops),
                               rounds=1, launches=1, warmup=1)
+        # the same rows with every query above the cap of 60: each query
+        # skips the search, the hat nodes and the epilogue, so this is the
+        # time of the map, its cummax and the phi sum
+        above = ops[:4] + (ops[4] + 100.0,) + ops[5:]
+        k3_map_ms = time_ms(torch, lambda: k3.eats_flux(*above), rounds=5,
+                            launches=2, warmup=1)
+        del above
         n_b, n_th, n_r = ops[0].shape
         n_t, n_phi, n_f = ops[4].shape[0], ops[5].shape[0], ops[7].shape[1]
         queries = n_b * n_th * n_phi * n_t
@@ -573,9 +602,6 @@ def grb_path(np, torch, gen):
                  + in_range * (K3_OPS_SEARCH_STEP * math.ceil(math.log2(n_r))
                                + 2 * K3_OPS_NODE + K3_OPS_PAIR
                                + K3_OPS_PAIR_F * n_f))
-        dense_ops = (map_ops + n_b * n_th * n_phi * n_r * K3_OPS_DENSE_COEF
-                     + queries * (K3_OPS_DENSE * n_r + K3_OPS_PAIR
-                                  + K3_OPS_PAIR_F * n_f))
         n_bytes = 4.0 * (sum(t.numel() for t in ops)
                          + n_b * n_th * n_f * n_t)
         k3_bound_ms = 1e3 * max(n_ops / PEAK_F32_FLOPS,
@@ -583,14 +609,40 @@ def grb_path(np, torch, gen):
         k3_bound_by = "operations" if n_ops / PEAK_F32_FLOPS >= \
             n_bytes / PEAK_BYTES else "bytes"
         say("k3", batch=BATCH, kernel_ms=f"{k3_ms:.4f}",
+            no_query_in_range_ms=f"{k3_map_ms:.4f}",
             plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound_ms:.4f}",
             bound_by=k3_bound_by, gops=f"{n_ops / 1e9:.3f}",
             mbytes=f"{n_bytes / 1e6:.3f}",
             queries_in_range=f"{in_range}/{queries}",
-            dense_loop_gops=f"{dense_ops / 1e9:.3f}",
-            dense_loop_bound_ms=f"{1e3 * dense_ops / PEAK_F32_FLOPS:.4f}",
+            share_of_bound=f"{k3_bound_ms / k3_ms:.4f}",
             shape=f"B{n_b}xTh{n_th}xPh{n_phi}xT{n_t}xR{n_r}xF{n_f}")
         del ops
+
+        # K3 on hand-made rows: cummax plateaus, a query on a node, on a
+        # plateau value, at log_t[0] and log_t[-1], and outside the rows
+        for n_r in (100, 128, 256):
+            for n_phi in (5, 16):
+                ops = k3.edge_operands(8, 8, n_r, 37, n_phi, len(GRB_FILTERS),
+                                       seed=n_r + n_phi, device=DEVICE)
+                launched = k3.LAUNCHES
+                got = k3.eats_flux(*ops)
+                want = k3.eats_flux_plain(*ops)
+                torch.cuda.synchronize()
+                rel = relative_error(torch, got, want)
+                zeros = want == 0
+                if k3.LAUNCHES != launched + 1 or not math.isfinite(rel) \
+                        or rel > K3_TOL or not torch.isfinite(got).all() \
+                        or not torch.equal(got == 0, zeros):
+                    raise RuntimeError(
+                        f"K3 disagrees on hand-made rows at R={n_r}, "
+                        f"Ph={n_phi}: max relative error {rel} (tolerance "
+                        f"{K3_TOL}), zeros {int((got == 0).sum())} against "
+                        f"{int(zeros.sum())}, {k3.LAUNCHES - launched} "
+                        "launches")
+                say("k3_edges", R=n_r, Ph=n_phi, T=37,
+                    shape="x".join(map(str, got.shape)),
+                    max_rel_err=f"{rel:.3e}",
+                    zeros=f"{int(zeros.sum())}/{zeros.numel()}")
 
         # 10. the TrPi2018 main path: photometry file -> batched_logl
         u = analysis.priors.sample_units(gen, BATCH)
@@ -814,6 +866,10 @@ def main() -> int:
     libs = _kernels.build()
     say("build", seconds=f"{time.time() - t0:.3f}",
         libraries=",".join(os.path.basename(p) for p in libs.values()))
+    for lib in libs:
+        say("ptxas", library=lib, **(ptxas_summary(_kernels.REPORTS[lib])
+                                     if lib in _kernels.REPORTS
+                                     else {"report": "not built in this run"}))
 
     # 3. K1 against its plain version at the main path's shapes
     svd = SVDModelData.load(ARTIFACT, device=DEVICE)

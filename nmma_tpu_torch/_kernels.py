@@ -21,7 +21,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> (source file, {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
@@ -43,6 +43,9 @@ KERNELS = {
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# nvcc's output (with ptxas's registers, stack and spills per kernel) of
+# each library built by this process
+REPORTS: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -95,6 +98,7 @@ def build(names=None) -> dict[str, str]:
                 # atomic: a concurrent process never loads a half-written
                 # library
                 os.replace(tmp, paths[name])
+                REPORTS[name] = output
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:

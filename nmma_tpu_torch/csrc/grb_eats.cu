@@ -18,33 +18,50 @@
 // with S the slow/fast-cooling SPN98 broken power law, evaluated in log space
 // (l_num and l_nuc are raw_1/denom and raw_2/denom themselves).
 //
-// Bound: after the cummax each phi row of log_t is monotone, and the 1e-12
-// width clamp gives plateau nodes no weight, so at most the two nodes that
-// bracket a query are nonzero. The function needs the map (11 f32
-// operations per (live point, ring, phi, r), an FMA counted as two), an
-// in-range test per query, and for a query in range a 7-step search, two
-// hat nodes and the epilogue: ~7.4e10 operations at B = 8192, Th = 48,
-// Ph = 16, T = 64, R = 128, F = 5, ~1.1 ms at the H100 SXM's 67 TFLOP/s of
-// f32 outside the tensor cores, against ~1.7 GB of operands and output
-// (~0.5 ms at 3.35 TB/s): bound by arithmetic (chip_smoke.py computes it
-// from each run's data). This kernel sweeps the dense hat instead, 18
-// operations per (live point, ring, phi, t, r), ~9.8e11 in all: it took
-// 36.9 ms on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-// (chip_smoke.py), ~3% of the bound. A search for the two live nodes is
-// the redesign that follows.
+// Two live nodes. After the cummax a log_t row x is non-decreasing, and node
+// r's hat is nonzero only where x_{r-1} < lq < x_{r+1} (x_{-1} = x_0, x_R =
+// x_{R-1}). With j = max{r : x_r <= lq}, nodes r < j have x_{r+1} <= lq and
+// nodes r > j+1 have x_{r-1} > lq: only j and j+1 carry weight, and the sums
+// over them, from 0 in r order with the same fmaf, are the dense sums bit for
+// bit (the dense loop adds exact zeros around them; the tracks are finite).
 //
-// Design: one block per (live point, ring). The TPU wrapper built the
-// [B, Th, Ph, R] arrival-time map in device memory (~150 MB per chunk of 128
-// live points); here the map, its cummax along R and the cap at 60 are built
-// in shared memory by the block itself. Each phi row gets 16 threads; a
-// thread owns up to 4 observer times of one phi row, so the row's hat
-// coefficients {x_l, x_r, 1/dl, 1/dr} (one 16-byte shared load) and the five
-// tracks (one 16-byte and one 4-byte broadcast load) serve 4 queries per
-// radius, and the 24 sums live in registers. Each thread then applies the
-// Doppler and synchrotron math and writes its [F] partials to shared memory;
-// the phi sum runs in a fixed order, without atomics, so the result does not
-// change from run to run. No --use_fast_math: the tracks are logs up to 88 in
-// magnitude, so an error in exp's argument is amplified.
+// Bound: the map (11 f32 operations per (live point, ring, phi, r), an FMA
+// counted as two), an in-range test per query and, for a query in range, a
+// ceil(log2 R)-step search, two hat nodes and the epilogue: ~7.3e10 operations
+// at B = 8192, Th = 48, Ph = 16, T = 64, R = 128, F = 5, ~1.09 ms at the H100
+// SXM's 67 TFLOP/s of f32 outside the tensor cores, against ~1.7 GB of
+// operands and output (~0.5 ms at 3.35 TB/s): bound by arithmetic
+// (chip_smoke.py computes it from each run's data). What holds the kernel back
+// is the cost of IEEE f32 in instructions, not operations: per query the
+// epilogue's three expf, two sinf, a logf, two sqrtf and seven IEEE divisions,
+// and one expf per filter; per (phi, r) cell a logf and a division. The map,
+// its cummax and the phi sum take ~40% of the time (chip_smoke.py times the
+// same rows with every query out of range), the search, the nodes and the
+// epilogue the rest. 48 registers, no spills (ptxas), so 5 blocks of 256
+// threads share an SM.
+//
+// Design: one block of THREADS = 256 threads per (live point, ring). The TPU
+// wrapper built the [B, Th, Ph, R] arrival-time map in device memory (~150 MB
+// per chunk of 128 live points); here it is built in shared memory by the
+// block itself, beside the ring's five tracks: one warp per phi row, a lane a
+// run of consecutive radii with their running maximum in registers, the lanes'
+// maxima combined by shuffles, the cap at 60, each value written once. Then
+// each thread takes (phi, t) queries in turn, consecutive threads on
+// consecutive t. A query outside [x_0, x_{R-1}] has em = 0, so its partials
+// are exactly 0 and it skips the nodes and the epilogue; a query in range
+// finds j by binary lifting over the shared row, evaluates the hats of nodes j
+// and j+1 with the dense form's expressions (the width between them is
+// inverted once), applies the Doppler and synchrotron math and writes its [F]
+// partials to shared memory. The phi sum runs in a fixed order, without
+// atomics, so the result does not change from run to run. No hat-coefficient
+// table: ~31 KB of shared memory per block at the main path's shapes, and
+// registers, not shared memory, cap the blocks per SM; 128 or 512 threads a
+// block, or a register cap for 6 blocks (which spills), ran slower. No
+// --use_fast_math: the tracks are logs up to 88 in magnitude, so an error in
+// exp's argument is amplified. The dense sweep over all R radii that this
+// replaces (18 operations per (point, ring, phi, t, r)) took 36.9-37.2 ms at
+// B=8192 on an NVIDIA H100 80GB HBM3 at a 700 W power limit; this kernel takes
+// 11.7 ms on the same card and limit (chip_smoke.py, PERF.md).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -54,26 +71,25 @@ constexpr int MAX_R = 256;
 constexpr int MAX_T = 64;
 constexpr int MAX_F = 8;
 constexpr int MAX_PHI = 64;
-constexpr int TPP = 16;                     // threads per phi row
-constexpr int KT = MAX_T / TPP;             // observer times per thread
+constexpr int THREADS = 256;                // threads per block
+constexpr int RUN_MAX = MAX_R / 32;         // radii per lane in a row scan
 constexpr int SMEM_LIMIT = 227 * 1024;      // bytes a block can use on sm_90
 constexpr float C_CGS = 2.99792458e10f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline int threads_for(int n_phi) {
-  return ((n_phi * TPP + 31) / 32) * 32;
-}
+// a lane of the row scan owns ceil(R/32) consecutive radii; their geometry
+// lies at an odd float4 stride per lane, so the lanes' 16-byte loads fall
+// in distinct banks
+__host__ __device__ inline int geo_stride(int R) { return ((R + 31) / 32) | 1; }
 
-// shared memory layout, in floats: a union region (geometry [4, R] while
-// the map is built, hat coefficients [Ph, R+1] float4 in the loop, partials
-// [Ph, F, T] after it), rounded up to whole float4s; then tracks 0-3 [R]
-// float4, track 4 [R], log_t [Ph, R+1] and ln(nu (1+z)) [F]
+// shared memory layout, in floats: a union region (geometry [32, stride]
+// float4 while the map is built, partials [Ph, F, T] after it), rounded up
+// to whole float4s; then tracks 0-3 [R] float4, track 4 [R], log_t
+// [Ph, R+1] and ln(nu (1+z)) [F]
 __host__ __device__ inline size_t union_floats(int R, int T, int Ph, int F) {
-  size_t coef = static_cast<size_t>(4) * Ph * (R + 1);
   size_t part = static_cast<size_t>(Ph) * F * T;
-  size_t geo = static_cast<size_t>(4) * R;
-  size_t m = coef > part ? coef : part;
-  m = m > geo ? m : geo;
+  size_t geo = static_cast<size_t>(4) * 32 * geo_stride(R);
+  size_t m = part > geo ? part : geo;
   return (m + 3) / 4 * 4;
 }
 
@@ -82,29 +98,28 @@ __host__ __device__ inline size_t smem_floats(int R, int T, int Ph, int F) {
          + static_cast<size_t>(Ph) * (R + 1) + F;
 }
 
-__global__ void grb_eats_kernel(const float* __restrict__ t_delay,
-                                const float* __restrict__ tracks,
-                                const float* __restrict__ r_grid,
-                                const float* __restrict__ scal,
-                                const float* __restrict__ log_q,
-                                const float* __restrict__ cphi,
-                                const float* __restrict__ wphi,
-                                const float* __restrict__ nu_obs,
-                                float* __restrict__ out,
-                                int Th, int R, int T, int Ph, int F) {
+__global__ void __launch_bounds__(THREADS)
+grb_eats_kernel(const float* __restrict__ t_delay,
+                const float* __restrict__ tracks,
+                const float* __restrict__ r_grid,
+                const float* __restrict__ scal,
+                const float* __restrict__ log_q,
+                const float* __restrict__ cphi,
+                const float* __restrict__ wphi,
+                const float* __restrict__ nu_obs,
+                float* __restrict__ out,
+                int Th, int R, int T, int Ph, int F) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int RS = R + 1;                                   // padded row stride
-  float4* coef = smem4;                                   // [Ph][RS]
-  float* geo = smem;                                      // [4][R], aliases coef
-  float* part = smem;                                     // [Ph][F][T], aliases coef
+  float4* geo = smem4;                                    // [32][stride]
+  float* part = smem;                                     // [Ph][F][T], aliases geo
   float4* trk = smem4 + union_floats(R, T, Ph, F) / 4;    // [R] tracks 0-3
   float* trk4 = reinterpret_cast<float*>(trk + R);        // [R] track 4
   float* lt = trk4 + R;                                   // [Ph][RS]
   float* lnu = lt + Ph * RS;                              // [F]
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
   const int bt = blockIdx.x;                              // b * Th + ring
   const int b = bt / Th;
   const int ring = bt - b * Th;
@@ -112,8 +127,10 @@ __global__ void grb_eats_kernel(const float* __restrict__ t_delay,
   const float z = sc[0], sin_tv = sc[2], p = sc[3], theta_v = sc[4];
   const float opz = 1.f + z;
 
-  // 1. the ring's tracks, and the geometry of its arrival-time map
-  for (int r = tid; r < R; r += nthreads) {
+  // 1. the ring's tracks, and the geometry of its arrival-time map:
+  //    {2 sin^2((tv - th)/2), sin tv sin th, t_delay, radius} per radius
+  const int run_len = (R + 31) / 32, stride = geo_stride(R);
+  for (int r = tid; r < R; r += THREADS) {
     float v[5];
 #pragma unroll
     for (int k = 0; k < 5; ++k)
@@ -122,36 +139,39 @@ __global__ void grb_eats_kernel(const float* __restrict__ t_delay,
     trk4[r] = v[4];
     const float th_r = expf(v[4]);
     const float s = sinf(0.5f * (theta_v - th_r));
-    geo[r] = 2.f * (s * s);                               // 2 sin^2((tv - th)/2)
-    geo[R + r] = sin_tv * sinf(th_r);
-    geo[2 * R + r] = t_delay[static_cast<size_t>(bt) * R + r];
-    geo[3 * R + r] = r_grid[static_cast<size_t>(b) * R + r];
+    geo[(r / run_len) * stride + r % run_len] = make_float4(
+        2.f * (s * s), sin_tv * sinf(th_r),
+        t_delay[static_cast<size_t>(bt) * R + r],
+        r_grid[static_cast<size_t>(b) * R + r]);
   }
-  for (int f = tid; f < F; f += nthreads)
+  for (int f = tid; f < F; f += THREADS)
     lnu[f] = logf(nu_obs[static_cast<size_t>(b) * F + f] * opz);
   __syncthreads();
 
-  // 2. log arrival times per (phi, r)
-  for (int i = tid; i < Ph * R; i += nthreads) {
-    const int ph = i / R, r = i - (i / R) * R;
-    const float omm = geo[r] + geo[R + r] * (1.f - cphi[ph]);
-    const float t_obs = opz * (geo[2 * R + r] + omm * geo[3 * R + r] / C_CGS);
-    lt[ph * RS + r] = logf(fmaxf(t_obs, 1e-10f));
-  }
-  __syncthreads();
-
-  // 3. cummax along R (arrival times of material moving toward the observer
-  //    can decrease), capped at 60: one warp per phi row, a lane scans a
-  //    run of consecutive radii and the lanes' maxima are combined by shuffles
+  // 2. log arrival times per (phi, r) and their cummax along R (arrival
+  //    times of material moving toward the observer can decrease), capped
+  //    at 60: one warp per phi row. A lane computes a run of consecutive
+  //    radii and their running maximum in registers; the lanes' maxima are
+  //    combined by shuffles, and each value is written once.
   {
-    const int warp = tid / 32, lane = tid % 32, nwarps = nthreads / 32;
-    const int run_len = (R + 31) / 32;
-    for (int ph = warp; ph < Ph; ph += nwarps) {
-      float* row = lt + ph * RS;
-      const int r0 = lane * run_len;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = lane * run_len;
+    const float4* g = geo + lane * stride;
+    for (int ph = warp; ph < Ph; ph += THREADS / 32) {
+      const float one_m_cp = 1.f - cphi[ph];
+      float v[RUN_MAX];
       float m = -CUDART_INF_F;
-      for (int e = 0; e < run_len; ++e)
-        if (r0 + e < R) m = fmaxf(m, row[r0 + e]);
+#pragma unroll
+      for (int e = 0; e < RUN_MAX; ++e) {
+        const int r = r0 + e;
+        if (e < run_len && r < R) {
+          const float4 q = g[e];
+          const float omm = q.x + q.y * one_m_cp;
+          const float t_obs = opz * (q.z + omm * q.w / C_CGS);
+          m = fmaxf(m, logf(fmaxf(t_obs, 1e-10f)));
+        }
+        v[e] = m;
+      }
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const float y = __shfl_up_sync(FULL, m, o);
@@ -159,112 +179,110 @@ __global__ void grb_eats_kernel(const float* __restrict__ t_delay,
       }
       float run = __shfl_up_sync(FULL, m, 1);
       if (lane == 0) run = -CUDART_INF_F;
-      for (int e = 0; e < run_len; ++e) {
-        if (r0 + e < R) {
-          run = fmaxf(run, row[r0 + e]);
-          row[r0 + e] = fminf(run, 60.f);
-        }
-      }
+      float* row = lt + ph * RS;
+#pragma unroll
+      for (int e = 0; e < RUN_MAX; ++e)
+        if (e < run_len && r0 + e < R)
+          row[r0 + e] = fminf(fmaxf(run, v[e]), 60.f);
     }
   }
-  __syncthreads();
+  __syncthreads();             // part (below) overwrites geo
 
-  // 4. hat coefficients per (phi, r): neighbours and inverse widths, the
-  //    widths clamped at 1e-12, so a node takes no weight from a flat side
-  for (int i = tid; i < Ph * R; i += nthreads) {
-    const int ph = i / R, r = i - (i / R) * R;
+  // 3. per (phi, t) query: the search, the two live hat nodes, the Doppler
+  //    factor and synchrotron spectrum, partials per f; a thread steps
+  //    THREADS queries at a time through the row-major [Ph, T] grid
+  int half = 1;                                           // ceil_pow2(R) / 2
+  while (2 * half < R) half *= 2;
+  const float third = 1.f / 3.f, e_mid = -(p - 1.f) / 2.f, e_hi = -p / 2.f;
+  const int step_ph = THREADS / T, step_t = THREADS - step_ph * T;
+  int ph = tid / T, t = tid - ph * T;
+#pragma unroll 1
+  for (; ph < Ph; ph += step_ph, t += step_t) {
+    if (t >= T) { t -= T; ++ph; if (ph >= Ph) break; }
     const float* row = lt + ph * RS;
-    const float c = row[r];
-    const float xl = row[r > 0 ? r - 1 : 0];
-    const float xr = row[r < R - 1 ? r + 1 : R - 1];
-    coef[ph * RS + r] = make_float4(xl, xr, 1.f / fmaxf(c - xl, 1e-12f),
-                                    1.f / fmaxf(xr - c, 1e-12f));
-  }
-  __syncthreads();
-
-  // 5. the dense hat contraction: 4 queries x 6 sums per thread
-  const int ph = tid / TPP, tl = tid % TPP;
-  const bool active = ph < Ph;
-  float lq[KT];
-  float acc[KT][6];
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    const int t = tl + TPP * k;
-    lq[k] = (active && t < T) ? log_q[t] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) acc[k][j] = 0.f;
-  }
-  if (active) {
-    const float4* crow = coef + ph * RS;
-#pragma unroll 2
-    for (int r = 0; r < R; ++r) {
-      const float4 c = crow[r];
-      const float4 tr = trk[r];
-      const float t4 = trk4[r];
-#pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        const float up = (lq[k] - c.x) * c.z;
-        const float dn = (c.y - lq[k]) * c.w;
-        const float h = fminf(fmaxf(fminf(up, dn), 0.f), 1.f);
-        acc[k][0] = fmaf(h, tr.x, acc[k][0]);
-        acc[k][1] = fmaf(h, tr.y, acc[k][1]);
-        acc[k][2] = fmaf(h, tr.z, acc[k][2]);
-        acc[k][3] = fmaf(h, tr.w, acc[k][3]);
-        acc[k][4] = fmaf(h, t4, acc[k][4]);
-        acc[k][5] += h;
-      }
+    float* pp = part + ph * F * T + t;
+    const float lq = log_q[t];
+    if (!(lq >= row[0] && lq <= row[R - 1])) {           // em = 0: no flux
+      for (int f = 0; f < F; ++f) pp[f * T] = 0.f;
+      continue;
     }
-  }
-  __syncthreads();                     // part (below) overwrites coef
-
-  // 6. Doppler factor and synchrotron spectrum per (phi, t), partials per f
-  if (active) {
-    const float lo = lt[ph * RS], hi = lt[ph * RS + R - 1];
+    // j = max{r : row[r] <= lq}; row[0] <= lq, and the steps sum to
+    // 2 half - 1 >= R - 1
+    int j = 0;
+    for (int s = half; s > 0; s >>= 1)
+      if (j + s < R && row[j + s] <= lq) j += s;
+    // nodes j and j+1, in r order, with the dense form's expressions: the
+    // neighbours clamped at the row's ends, widths clamped at 1e-12. The
+    // width x_{j+1} - x_j is node j's right side and node j+1's left side.
+    const float xa = row[j > 0 ? j - 1 : 0], x0 = row[j];
+    const float x1 = row[j < R - 1 ? j + 1 : R - 1];
+    const float inv_mid = 1.f / fmaxf(x1 - x0, 1e-12f);
+    float acc[6];
+    {
+      const float up = (lq - xa) * (1.f / fmaxf(x0 - xa, 1e-12f));
+      const float dn = (x1 - lq) * inv_mid;
+      const float h = fminf(fmaxf(fminf(up, dn), 0.f), 1.f);
+      const float4 tr = trk[j];
+      acc[0] = fmaf(h, tr.x, 0.f);
+      acc[1] = fmaf(h, tr.y, 0.f);
+      acc[2] = fmaf(h, tr.z, 0.f);
+      acc[3] = fmaf(h, tr.w, 0.f);
+      acc[4] = fmaf(h, trk4[j], 0.f);
+      acc[5] = 0.f + h;
+    }
+    if (j + 1 < R) {
+      const float x2 = row[j + 2 < R ? j + 2 : R - 1];
+      const float up = (lq - x0) * inv_mid;
+      const float dn = (x2 - lq) * (1.f / fmaxf(x2 - x1, 1e-12f));
+      const float h = fminf(fmaxf(fminf(up, dn), 0.f), 1.f);
+      const float4 tr = trk[j + 1];
+      acc[0] = fmaf(h, tr.x, acc[0]);
+      acc[1] = fmaf(h, tr.y, acc[1]);
+      acc[2] = fmaf(h, tr.z, acc[2]);
+      acc[3] = fmaf(h, tr.w, acc[3]);
+      acc[4] = fmaf(h, trk4[j + 1], acc[4]);
+      acc[5] += h;
+    }
     const float cp = cphi[ph], w = wphi[ph];
-    const float third = 1.f / 3.f, e_mid = -(p - 1.f) / 2.f, e_hi = -p / 2.f;
+    const float inv = 1.f / fmaxf(acc[5], 1.f);
+    const float g = expf(acc[0] * inv);
+    const float l_num = acc[1] * inv;
+    const float l_nuc = acc[2] * inv;
+    const float em = expf(acc[3] * inv);
+    const float th_t = expf(acc[4] * inv);
+    const float s = sinf(0.5f * (theta_v - th_t));
+    const float omm = 2.f * (s * s) + sin_tv * sinf(th_t) * (1.f - cp);
+    const float u2 = fmaxf(g * g - 1.f, 1e-12f);
+    const float be = sqrtf(u2) / g;
+    const float one_m_be = 1.f / (g * g * (1.f + be));
+    const float inv_gd = g * (one_m_be + be * omm);         // 1 / delta
+    const float s_sh = sqrtf(1.f + 1.f / u2);
+    const float one_m_bs = (3.f - 4.f / (s_sh + 1.f)) / (4.f * u2 + 3.f);
+    const float ashock = one_m_bs + (1.f - one_m_bs) * omm;
+    const float common = w * opz * em / (inv_gd * inv_gd * ashock);
+    const float l_gd = logf(inv_gd);
 #pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int t = tl + TPP * k;
-      if (t >= T) continue;
-      const float inv = 1.f / fmaxf(acc[k][5], 1.f);
-      const float g = expf(acc[k][0] * inv);
-      const float l_num = acc[k][1] * inv;
-      const float l_nuc = acc[k][2] * inv;
-      const bool in_range = (lq[k] >= lo) && (lq[k] <= hi);
-      const float em = in_range ? expf(acc[k][3] * inv) : 0.f;
-      const float th_t = expf(acc[k][4] * inv);
-      const float s = sinf(0.5f * (theta_v - th_t));
-      const float omm = 2.f * (s * s) + sin_tv * sinf(th_t) * (1.f - cp);
-      const float u2 = fmaxf(g * g - 1.f, 1e-12f);
-      const float be = sqrtf(u2) / g;
-      const float one_m_be = 1.f / (g * g * (1.f + be));
-      const float inv_gd = g * (one_m_be + be * omm);      // 1 / delta
-      const float s_sh = sqrtf(1.f + 1.f / u2);
-      const float one_m_bs = (3.f - 4.f / (s_sh + 1.f)) / (4.f * u2 + 3.f);
-      const float ashock = one_m_bs + (1.f - one_m_bs) * omm;
-      const float common = w * opz * em / (inv_gd * inv_gd * ashock);
-      const float l_gd = logf(inv_gd);
-      for (int f = 0; f < F; ++f) {
-        const float l_nu = lnu[f] + l_gd;                   // ln nu'
-        float e;
-        if (l_num <= l_nuc) {                               // slow cooling
-          e = l_nu < l_num ? third * (l_nu - l_num)
-            : l_nu < l_nuc ? e_mid * (l_nu - l_num)
-            : e_mid * (l_nuc - l_num) + e_hi * (l_nu - l_nuc);
-        } else {                                            // fast cooling
-          e = l_nu < l_nuc ? third * (l_nu - l_nuc)
-            : l_nu < l_num ? -0.5f * (l_nu - l_nuc)
-            : -0.5f * (l_num - l_nuc) + e_hi * (l_nu - l_num);
-        }
-        part[(ph * F + f) * T + t] = common * expf(e);
+    for (int f = 0; f < MAX_F; ++f) {
+      if (f >= F) break;
+      const float l_nu = lnu[f] + l_gd;                     // ln nu'
+      float e;
+      if (l_num <= l_nuc) {                                 // slow cooling
+        e = l_nu < l_num ? third * (l_nu - l_num)
+          : l_nu < l_nuc ? e_mid * (l_nu - l_num)
+          : e_mid * (l_nuc - l_num) + e_hi * (l_nu - l_nuc);
+      } else {                                              // fast cooling
+        e = l_nu < l_nuc ? third * (l_nu - l_nuc)
+          : l_nu < l_num ? -0.5f * (l_nu - l_nuc)
+          : -0.5f * (l_num - l_nuc) + e_hi * (l_nu - l_num);
       }
+      pp[f * T] = common * expf(e);
     }
   }
   __syncthreads();
 
-  // 7. the phi sum in a fixed order, written coalesced
+  // 4. the phi sum in a fixed order, written coalesced
   float* o = out + static_cast<size_t>(bt) * F * T;
-  for (int i = tid; i < F * T; i += nthreads) {
+  for (int i = tid; i < F * T; i += THREADS) {
     float acc_phi = 0.f;
     for (int q = 0; q < Ph; ++q) acc_phi += part[q * F * T + i];
     o[i] = acc_phi;
@@ -309,7 +327,7 @@ extern "C" int nmma_grb_eats(const void* t_delay, const void* tracks,
       grb_eats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  grb_eats_kernel<<<static_cast<unsigned>(blocks), threads_for(Ph), smem,
+  grb_eats_kernel<<<static_cast<unsigned>(blocks), THREADS, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(t_delay), static_cast<const float*>(tracks),
       static_cast<const float*>(r_grid), static_cast<const float*>(scal),

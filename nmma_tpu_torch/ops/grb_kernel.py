@@ -16,8 +16,10 @@ semantics are those of ``_eats_stage2_xla`` in its "fused" mode
 The plain version repeats that function batch-first, in chunks of
 (live point, ring) rows so that its dense [rows, Ph, T, R] hat stays under
 about 1 GB. The CUDA kernel (``csrc/grb_eats.cu``) builds the arrival-time
-map, its cummax and the hat in shared memory and registers, and sums the
-same products over R in another order.
+map and its cummax in shared memory, and for each query finds by a binary
+search of the monotone log-time row the two nodes whose hats can be nonzero
+(``log_time_rows`` and ``hat_basis`` below are the map and the dense hat;
+the tests hold the two-node sums to the dense ones).
 
 CUDA tensors go to the kernel and CPU tensors to the plain version; there is
 no fallback from one to the other.
@@ -25,6 +27,9 @@ no fallback from one to the other.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -67,6 +72,35 @@ def synchrotron_shape(nu, nu_m, nu_c, p):
     return torch.where(nu_m <= nu_c, slow, fast)
 
 
+def log_time_rows(t_delay, tracks, r_grid, scal, cphi):
+    """The log arrival-time map of N (live point, ring) rows, its cummax
+    along R and the cap at 60: t_delay [N, R], tracks [N, 5, R],
+    r_grid [N, R], scal [N, 8] -> [N, Ph, R], non-decreasing along R."""
+    col = scal[:, :, None, None]                            # [N, 8, 1, 1]
+    z, sin_tv, theta_v = col[:, 0], col[:, 2], col[:, 4]
+    # arrival times follow the (possibly moving) ring material
+    th_r = torch.exp(tracks[:, 4])[:, None, :]              # [N, 1, R]
+    t_obs = (1.0 + z) * (t_delay[:, None, :] + one_minus_mu(
+        theta_v, sin_tv, th_r, cphi[None, :, None])
+        * r_grid[:, None, :] / c_cgs)
+    log_t = torch.log(torch.clamp(t_obs, min=1e-10))
+    return torch.clamp(torch.cummax(log_t, dim=-1).values, max=60.0)
+
+
+def hat_basis(log_t, log_q):
+    """The dense hat of every query on every node: log_t [N, Ph, R],
+    log_q [T] -> [N, Ph, T, R]. Neighbours are clamped at the row's ends
+    and widths at 1e-12, so a node takes no weight from a flat side."""
+    x_l = torch.cat([log_t[..., :1], log_t[..., :-1]], dim=-1)
+    x_r = torch.cat([log_t[..., 1:], log_t[..., -1:]], dim=-1)
+    dl = torch.clamp(log_t - x_l, min=1e-12)[:, :, None, :]
+    dr = torch.clamp(x_r - log_t, min=1e-12)[:, :, None, :]
+    lq = log_q[None, None, :, None]                         # [1, 1, T, 1]
+    up = (lq - x_l[:, :, None, :]) / dl                     # [N, Ph, T, R]
+    dn = (x_r[:, :, None, :] - lq) / dr
+    return torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
+
+
 def _eats_rows(t_delay, tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     """The EATS stage for N independent (live point, ring) rows:
     t_delay [N, R], tracks [N, 5, R], r_grid [N, R], scal [N, 8],
@@ -78,21 +112,8 @@ def _eats_rows(t_delay, tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     one_p_z = 1.0 + z                                       # [N, 1, 1]
     cphi_r = cphi[None, :, None]                            # [1, Ph, 1]
 
-    # arrival times follow the (possibly moving) ring material
-    th_r = torch.exp(tracks[:, 4])[:, None, :]              # [N, 1, R]
-    t_obs = one_p_z * (t_delay[:, None, :] + one_minus_mu(
-        theta_v, sin_tv, th_r, cphi_r) * r_grid[:, None, :] / c_cgs)
-    log_t = torch.log(torch.clamp(t_obs, min=1e-10))
-    log_t = torch.clamp(torch.cummax(log_t, dim=-1).values, max=60.0)
-    x_l = torch.cat([log_t[..., :1], log_t[..., :-1]], dim=-1)
-    x_r = torch.cat([log_t[..., 1:], log_t[..., -1:]], dim=-1)
-    dl = torch.clamp(log_t - x_l, min=1e-12)[:, :, None, :]
-    dr = torch.clamp(x_r - log_t, min=1e-12)[:, :, None, :]
-    lq = log_q[None, None, :, None]                         # [1, 1, T, 1]
-    up = (lq - x_l[:, :, None, :]) / dl                     # [N, Ph, T, R]
-    dn = (x_r[:, :, None, :] - lq) / dr
-    hat = torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
-    del up, dn
+    log_t = log_time_rows(t_delay, tracks, r_grid, scal, cphi)
+    hat = hat_basis(log_t, log_q)                           # [N, Ph, T, R]
     # the five tracks and a ones lane (the hat row sum), contracted over R
     tr1 = torch.cat([tracks, torch.ones_like(tracks[:, :1])], dim=1)
     raw = torch.bmm(hat.reshape(n, n_phi * n_t, n_r),
@@ -141,6 +162,72 @@ def eats_flux_plain(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
         out[s:e] = _eats_rows(td[s:e], tracks[s:e], r_grid[idx], scal[idx],
                               log_q, cphi, wphi, nu_obs[idx])
     return out.reshape(n_b, n_th, n_f, n_t)
+
+
+def edge_operands(n_b, n_th, n_r, n_t, n_phi, n_f, seed=0, device="cpu"):
+    """K3 operands made by hand from a seed, to reach the hat's edge cases.
+
+    z = 0 and r_grid = 0, so every implementation's map is
+    ``log_t = min(cummax log max(t_delay, 1e-10), 60)``; where a case needs
+    an exact log time, t_delay is 1.0 (log exactly 0), below 1e-10 (the
+    floor) or +inf (the cap, exactly 60). log_q holds 0.0 and 60.0, -25 and
+    65 (below and above every row), and n_t - 4 values drawn between them,
+    sorted (n_t >= 4).
+    Between those values a row is a random walk in log t whose dips make
+    cummax plateaus. The (live point, ring) rows cycle through four kinds:
+
+    0. t_delay[0] = 1: a query at log_t[0]; a tail of +inf with a finite
+       value after it: a plateau at the cap, a query at log_t[-1];
+    1. a head below 1 and 1.0 at the middle node, then a dip: a query on a
+       plateau at 0; the row ends below 60, so query 60 lies above it;
+    2. t_delay[0] = 5: query 0 lies below the row; a tail of +inf;
+    3. a flat head below 1e-10, then 1.0: a query exactly on a node.
+
+    Returns the eight operands of :func:`eats_flux`, f32, on ``device``.
+    """
+    rng = np.random.default_rng(seed)
+    rows = n_b * n_th
+    walk = np.cumsum(rng.normal(1.0, 2.0, (rows, n_r)), axis=1)
+    t = np.exp(np.clip(-3.0 + walk * (45.0 / n_r), -20.0, 55.0))
+    kind = np.arange(rows) % 4
+    mid, tail, dip = n_r // 2, max(1, n_r // 8), max(1, n_r // 10)
+    head = n_r // 4 + 1
+    k = kind == 0
+    t[k, 0] = 1.0
+    t[k, n_r - tail:] = np.inf
+    if n_r >= 4:
+        t[k, n_r - 2] = 2.0
+    k = kind == 1
+    t[k, :mid] = np.minimum(t[k, :mid], 0.9)
+    t[k, mid] = 1.0
+    t[k, mid + 1:mid + 1 + dip] = 0.5
+    k = kind == 2
+    t[k, 0] = 5.0
+    t[k, n_r - tail:] = np.inf
+    k = kind == 3
+    t[k, :head] = np.where(np.arange(head) % 2 == 0, 0.0, 1e-12)
+    if head < n_r:
+        t[k, head] = 1.0
+    log_q = np.sort(np.concatenate(
+        [[-25.0, 0.0, 60.0, 65.0], rng.uniform(-25.0, 65.0, n_t - 4)]))
+    tracks = np.stack([
+        rng.uniform(0.0, 5.0, (n_b, n_th, n_r)),        # log gamma
+        rng.uniform(18.0, 28.0, (n_b, n_th, n_r)),      # log nu_m'
+        rng.uniform(22.0, 34.0, (n_b, n_th, n_r)),      # log nu_c'
+        rng.uniform(-5.0, 5.0, (n_b, n_th, n_r)),       # log em
+        np.log(rng.uniform(0.02, 0.5, (n_b, n_th, n_r))),   # log theta
+    ], axis=1)
+    theta_v = rng.uniform(0.0, 0.5, n_b)
+    zeros = np.zeros(n_b)
+    scal = np.stack([zeros, np.cos(theta_v), np.sin(theta_v),
+                     rng.uniform(2.1, 2.8, n_b), theta_v, zeros, zeros,
+                     zeros], axis=1)
+    x_gl, w_gl = np.polynomial.legendre.leggauss(n_phi)
+    arrays = (t.reshape(n_b, n_th, n_r), tracks, np.zeros((n_b, n_r)), scal,
+              log_q, np.cos((x_gl + 1.0) * (math.pi / 2.0)),
+              w_gl * (n_phi / 2.0), 10.0 ** rng.uniform(9.0, 15.0, (n_b, n_f)))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in arrays)
 
 
 def _check_operands(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,

@@ -281,6 +281,143 @@ def test_k3_wrapper_checks_its_operands(captured):
         k3.eats_flux(*(o.to("meta") for o in ops))
 
 
+# -- K3's two live hat nodes ------------------------------------------------
+#
+# After the cummax a log-time row is non-decreasing, so at most the two nodes
+# that bracket a query, j = max{r : log_t[r] <= lq} and j + 1, carry hat
+# weight; the kernel searches for them instead of sweeping all R radii. The
+# cases: the stage-2 operands of the captured JAX model, and hand-made rows
+# (k3.edge_operands) with cummax plateaus, a query on a node, queries on a
+# plateau value, at log_t[0] and log_t[-1], and outside the row.
+
+EDGE_R = (2, 100, 256)
+HAT_CASES = ["captured-small", "captured-full"] + [f"edges-{r}"
+                                                   for r in EDGE_R]
+
+
+def edge_rows(n_r):
+    """Hand-made K3 operands: 3 live points x 4 rings, T = 37, Ph = 5,
+    F = 3."""
+    return k3.edge_operands(3, 4, n_r, 37, 5, 3, seed=n_r)
+
+
+def hat_case(captured, case):
+    if case.startswith("edges-"):
+        return edge_rows(int(case.split("-")[1]))
+    b, kw_name = {"captured-small": (5, "small"),
+                  "captured-full": (2, "full")}[case]
+    return port_operands(captured(b, kw_name)[1])
+
+
+def hat_rows(ops):
+    """The plain K3's log-time rows [N, Ph, R], the tracks with a ones lane
+    [N, R, 6], and j = max{r : log_t[r] <= lq} per query [N, Ph, T]."""
+    t_delay, log_tracks, r_grid, scal, log_q, cphi = ops[:6]
+    n_b, n_th, n_r = t_delay.shape
+    point = torch.arange(n_b).repeat_interleave(n_th)
+    tracks = log_tracks.transpose(1, 2).reshape(-1, k3.N_TRACKS, n_r)
+    log_t = k3.log_time_rows(t_delay.reshape(-1, n_r), tracks,
+                             r_grid[point], scal[point], cphi)
+    tr1 = torch.cat([tracks, torch.ones_like(tracks[:, :1])], 1)
+    lq = log_q.expand(*log_t.shape[:2], -1).contiguous()
+    j = torch.searchsorted(log_t.contiguous(), lq, right=True) - 1
+    return log_t, tr1.transpose(1, 2), j
+
+
+def fma(acc, h, tr):
+    """acc + h * tr in f32, the product exact (in float64): the same
+    multiply-add on both sides of a comparison."""
+    return (acc.double() + h.double() * tr.double()).float()
+
+
+@pytest.mark.parametrize("case", HAT_CASES)
+def test_k3_hat_lives_on_the_two_bracketing_nodes(captured, case):
+    """Every nonzero of the dense hat lies on node j or j + 1."""
+    ops = hat_case(captured, case)
+    log_t, _, j = hat_rows(ops)
+    hat = k3.hat_basis(log_t, ops[4])                       # [N, Ph, T, R]
+    r = torch.arange(log_t.shape[-1])
+    bracket = (r == j[..., None]) | (r == j[..., None] + 1)
+    live = hat != 0
+    print(f"{case}: {int(live.any(-1).sum())} of {j.numel()} queries with "
+          f"weight, {int((live.sum(-1) == 2).sum())} on two nodes")
+    assert not (live & ~bracket).any()
+    assert (live.sum(-1) == 2).any()
+
+
+@pytest.mark.parametrize("case", HAT_CASES)
+def test_k3_two_node_sums_equal_dense_sums(captured, case):
+    """The five track sums and the hat sum over all R radii, in r order,
+    equal the sums over nodes j and j + 1 alone, their hats taken with the
+    dense form's expressions: bit for bit."""
+    ops = hat_case(captured, case)
+    log_t, tr1, j = hat_rows(ops)
+    n_r = log_t.shape[-1]
+    lq = ops[4][None, None, :]
+    hat = k3.hat_basis(log_t, ops[4])
+    dense = torch.zeros(j.shape + (k3.N_TRACKS + 1,))
+    for r in range(n_r):
+        dense = fma(dense, hat[..., r, None], tr1[:, None, None, r])
+    two = torch.zeros_like(dense)
+    rows = torch.arange(len(j))[:, None, None]
+    for n in (0, 1):
+        r = j + n
+        node = r.clamp(0, n_r - 1)
+        x = torch.gather(log_t, 2, node)
+        x_l = torch.gather(log_t, 2, (node - 1).clamp(min=0))
+        x_r = torch.gather(log_t, 2, (node + 1).clamp(max=n_r - 1))
+        up = (lq - x_l) / torch.clamp(x - x_l, min=1e-12)
+        dn = (x_r - lq) / torch.clamp(x_r - x, min=1e-12)
+        h = torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
+        h = torch.where((r >= 0) & (r < n_r), h, 0.0)
+        two = fma(two, h[..., None], tr1[rows, node])
+    assert (dense[..., -1] > 0).any()
+    assert torch.equal(two, dense)
+
+
+@pytest.mark.parametrize("n_r", EDGE_R)
+def test_k3_edge_rows_reach_their_cases(n_r):
+    """The hand-made rows hold what they are made for: rows starting at
+    log t = 0 and ending at the cap of 60, rows that end below 60 or start
+    above 0, queries 0 and 60, queries below and above every row, and
+    (where R leaves room) plateaus at 0 and at the cap and a query on a
+    node whose neighbours differ."""
+    ops = edge_rows(n_r)
+    log_t, _, _ = hat_rows(ops)
+    first, last = log_t[..., 0], log_t[..., -1]
+    log_q = ops[4]
+    assert (log_q == 0).any() and (log_q == 60).any()
+    assert (log_q < first.min()).any() and (log_q > last.max()).any()
+    assert (first == 0).any() and (first > 0).any()
+    assert (last == 60).any() and (last < 60).any()
+    if n_r >= 4:
+        zero = log_t == 0
+        assert (zero[..., 1:] & zero[..., :-1]).any()
+        assert (log_t[..., -2] == 60).any()
+        on_node = zero[..., 1:-1] & (log_t[..., :-2] < 0) & (log_t[..., 2:] > 0)
+        assert on_node.any()
+
+
+@pytest.mark.parametrize("n_r", EDGE_R)
+def test_k3_edge_rows_match_xla_fused(monkeypatch, n_r):
+    """The plain K3 on the hand-made rows against the fused XLA path:
+    within REL_TOL, with zeros (queries outside every row) in the same
+    places."""
+    monkeypatch.setenv("NMMA_TPU_GRB_CONTRACT", "fused")
+    ops = edge_rows(n_r)
+    want = np.asarray(jax.jit(jax.vmap(
+        G._eats_stage2_xla, in_axes=(0, 0, 0, 0, None, None, None, 0)))(
+        *(jnp.asarray(o.numpy()) for o in ops)))
+    got = k3.eats_flux(*ops).numpy()
+    assert got.shape == want.shape == (3, 4, 3, 37)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    assert (got == 0).any() and (got != 0).any()
+    err = rel_err(got, want)
+    print(f"K3 plain vs fused XLA on hand-made rows, R={n_r}: {err:.3e}")
+    assert err < REL_TOL
+
+
 # -- stage 1 and the flux density -------------------------------------------
 
 @pytest.mark.parametrize("b,kw_name", [(5, "small"), (2, "full")])
