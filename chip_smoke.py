@@ -19,8 +19,10 @@ through K2 and K3:
               and ptxas's registers, stack and spills of each kernel;
   3. k1       K1 against its plain PyTorch version on the card at the main
               path's shapes (B = 1, 128, 8199; max abs error <= 1e-4 mag),
-              then kernel and plain timings at B = 8192 (CUDA events, median
-              of 25 rounds of 10 launches);
+              then its device time at the samplers' B = 128 (torch.profiler
+              over 20 launches) and kernel and plain timings at B = 8192
+              (CUDA events, median of 25 rounds of 10 launches), each with
+              its bound;
   4. logl     synthetic photometry from the surrogate -> .dat file ->
               load_em_observations -> EMAnalysis.batched_logl at B = 8192
               (one K1 launch, no K2 launch): finite share, evals/s over 5
@@ -35,7 +37,15 @@ through K2 and K3:
   6. k2       K2 against its plain version on the card at B = 1, 128, 8199
               under the near-tie rule (ops/me2017_kernel.py
               compare_dynamics): max relative errors, near-ties, mismatches;
-              then kernel and plain timings at B = 8192 as for K1;
+              r_photo must equal the plain version's bit for bit and ltot
+              lie within 1e-4 relative where ltot_ref > 1e-4; then its
+              device time at B = 128 and kernel and plain timings at
+              B = 8192 as for K1; then [k2_ties]: K2 against its plain
+              version at B = 1024 on shells tied exactly in pairs
+              (ops/me2017_kernel.py tied_operands), the pair in two lanes
+              and in two slots of one lane: r_photo bit for bit, at least
+              100 ties where the pair's vm differ, ltot within 1e-4, one
+              launch per call;
   7. me2017_logl
               the same as phase 4 with the Me2017 model (one K2 launch, no
               K1 launch), its peak device memory, and |dlogL| against the
@@ -123,6 +133,12 @@ ME_INJECTION = {"log10_mej": -1.3, "log10_vej": -1.1, "beta": 3.0,
 # (csrc/me2017_dynamics.cu), and per (live point, step) outside it
 K2_OPS_SHELL_STEP = 31
 K2_OPS_STEP = 2
+# K2's ltot against its plain version, relative, where ltot_ref > 1e-4: the
+# kernel's one reciprocal per shell-step and FMAs read ~5e-7 in the CPU
+# emulation (tests/test_torch_me2017.py); 20x inside compare_dynamics' 2e-3
+K2_LTOT_TOL = 1e-4
+# the samplers' walk batch (n_delete=128), where K1 and K2 run 961 times
+SAMPLER_BATCH = 128
 # the TrPi2018 path: BASELINE config 3, scripts/bench_grb_pe.py:17-50
 GRB_FILTERS = ["ztfg", "ztfr", "ztfi", "X-ray-1keV", "radio-6GHz"]
 GRB_PRIOR_TEXT = """\
@@ -258,8 +274,8 @@ def throughput(torch, fn, rounds=5, round_s=0.4, warmup=3):
 
 def device_profile(torch, fn, kernel=None):
     """(device-busy ms, kernel launches, top kernels, device ms of the
-    kernels whose name contains ``kernel``) of one ``fn()`` under
-    torch.profiler."""
+    kernels whose name contains ``kernel``, their launches) of one ``fn()``
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -270,11 +286,28 @@ def device_profile(torch, fn, kernel=None):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
-    named_ms = sum(e.self_device_time_total for e in dev
-                   if kernel and kernel in e.key) / 1e3
+    named = [e for e in dev if kernel and kernel in e.key]
     return busy_ms, sum(e.count for e in dev), ";".join(
         f"{e.key[:40]}:{e.self_device_time_total / 1e3:.4f}" for e in top), \
-        named_ms
+        sum(e.self_device_time_total for e in named) / 1e3, \
+        sum(e.count for e in named)
+
+
+def kernel_device_ms(torch, fn, kernel, calls=20, warmup=3):
+    """Device ms of one launch of the kernels whose name contains
+    ``kernel``, from torch.profiler over ``calls`` calls of ``fn`` after
+    warm-up: at the samplers' small batches the host launches slower than
+    the card runs the kernel, so CUDA events would time the host's gaps."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    named_ms, count = device_profile(
+        torch, lambda: [fn() for _ in range(calls)], kernel)[3:]
+    # the tracer may drop a record: average over the launches it saw
+    if not 0 < count <= calls:
+        raise RuntimeError(f"the profiler saw {count} launches of {kernel} "
+                           f"in {calls} calls")
+    return named_ms / count
 
 
 def synthetic_photometry(np, torch, model, filters, path, injection,
@@ -346,25 +379,77 @@ def me2017_path(np, torch, gen, sample_times):
         stats = k2.compare_dynamics(ltot, r_photo, *want)
         if ltot.shape != want[0].shape or not stats["ok"]:
             raise RuntimeError(f"K2 disagrees at B={b}: {stats}")
+        # the kernel rounds tau as the plain version does: same shell
+        if not torch.equal(r_photo, want[1]):
+            raise RuntimeError(f"K2's r_photo differs from the plain "
+                               f"version's at B={b} in "
+                               f"{int((r_photo != want[1]).sum())} points")
+        if stats["ltot_max_rel"] > K2_LTOT_TOL:
+            raise RuntimeError(f"K2's ltot is {stats['ltot_max_rel']} off "
+                               f"the plain version's at B={b} (tolerance "
+                               f"{K2_LTOT_TOL})")
         for key in worst:
             worst[key] = max(worst[key], stats[key])
         max_err = max(max_err, float((ltot - want[0]).abs().max()))
         say("k2", batch=b, **{k: v for k, v in stats.items() if k != "ok"},
             r_exact_share=f"{float((r_photo == want[1]).float().mean()):.6f}")
     n_t = sample_times.shape[0]
+
+    def bound(ops, n_b):
+        n_ops = (n_t - 1) * n_b * (K2_OPS_SHELL_STEP * k2.N_SHELLS
+                                   + K2_OPS_STEP)
+        n_bytes = 4.0 * sum(t.numel() for t in ops) + 4.0 * 2 * n_b * n_t
+        return n_ops, n_bytes, 1e3 * max(n_ops / PEAK_F32_FLOPS,
+                                         n_bytes / PEAK_BYTES), \
+            "operations" if n_ops / PEAK_F32_FLOPS >= n_bytes / PEAK_BYTES \
+            else "bytes"
+
+    ops = k2.me2017_operands(*draw(SAMPLER_BATCH), sample_times)
+    k2_ms_small = kernel_device_ms(
+        torch, lambda: k2.me2017_dynamics_from_operands(*ops),
+        "me2017_dynamics_kernel")
+    say("k2", batch=SAMPLER_BATCH, kernel_ms=f"{k2_ms_small:.4f}",
+        timed_by="profiler", bound_ms=f"{bound(ops, SAMPLER_BATCH)[2]:.4f}")
     ops = k2.me2017_operands(*draw(BATCH), sample_times)
     k2_ms = time_ms(torch, lambda: k2.me2017_dynamics_from_operands(*ops))
     k2_plain_ms = time_ms(torch, lambda: k2.me2017_dynamics_plain(*ops))
-    n_ops = (n_t - 1) * BATCH * (K2_OPS_SHELL_STEP * k2.N_SHELLS
-                                 + K2_OPS_STEP)
-    n_bytes = 4.0 * sum(t.numel() for t in ops) + 4.0 * 2 * BATCH * n_t
-    k2_bound_ms = 1e3 * max(n_ops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES)
-    k2_bound_by = "operations" if n_ops / PEAK_F32_FLOPS >= \
-        n_bytes / PEAK_BYTES else "bytes"
+    n_ops, n_bytes, k2_bound_ms, k2_bound_by = bound(ops, BATCH)
     say("k2", batch=BATCH, kernel_ms=f"{k2_ms:.4f}",
         plain_ms=f"{k2_plain_ms:.4f}", bound_ms=f"{k2_bound_ms:.4f}",
-        bound_by=k2_bound_by, gops=f"{n_ops / 1e9:.3f}",
-        mbytes=f"{n_bytes / 1e6:.3f}")
+        bound_by=k2_bound_by, bound_share=f"{k2_bound_ms / k2_ms:.4f}",
+        gops=f"{n_ops / 1e9:.3f}", mbytes=f"{n_bytes / 1e6:.3f}")
+
+    # K2 on exact ties: shell s + stride takes tau of shell s, in two lanes
+    # (stride 1) or two slots of one lane (stride 32); the first shell of a
+    # pair must win, as in the plain version
+    n_ties = 1024
+    for stride in (1, 32):
+        shells, per_sample, per_step = k2.me2017_operands(
+            *draw(n_ties), sample_times)
+        shells = k2.tied_operands(shells, stride)
+        before = k2.LAUNCHES
+        ltot, r_photo = k2.me2017_dynamics_from_operands(
+            shells, per_sample, per_step)
+        launched = k2.LAUNCHES - before
+        ltot_ref, r_ref, gap, r_cand = k2.me2017_dynamics_plain(
+            shells, per_sample, per_step, with_ties=True)
+        torch.cuda.synchronize()
+        tied = gap == 0
+        decisive = tied & (r_cand[..., 0] != r_cand[..., 1])
+        sel = ltot_ref > 1e-4
+        ltot_rel = float(((ltot - ltot_ref).abs() / ltot_ref)[sel].max())
+        mismatches = int((r_photo != r_ref).sum())
+        say("k2_ties", stride=stride, batch=n_ties,
+            exact_ties=int(tied.sum()), decisive_ties=int(decisive.sum()),
+            r_mismatches=mismatches, ltot_max_rel=f"{ltot_rel:.3e}",
+            launches=launched)
+        if launched != 1 or mismatches or int(decisive.sum()) < 100 \
+                or not ltot_rel <= K2_LTOT_TOL \
+                or not bool(torch.isfinite(ltot).all()):
+            raise RuntimeError(f"K2 fails on tied shells (stride {stride}): "
+                               f"{launched} launches, {mismatches} r_photo "
+                               f"mismatches, {int(decisive.sum())} decisive "
+                               f"ties, ltot {ltot_rel} off")
 
     # 7. the Me2017 main path: photometry file -> batched_logl at B=8192
     filters = ["sdssu", "ztfg", "ztfr", "ztfi", "ps1::z", "ps1::y",
@@ -409,7 +494,7 @@ def me2017_path(np, torch, gen, sample_times):
             torch, lambda: analysis.batched_logl(u))
         for b, ms in ((BATCH, logl_ms), (128, throughput(
                 torch, lambda: analysis.batched_logl(u[:128]))[0])):
-            busy, n_launch, top, _ = device_profile(
+            busy, n_launch, top, _, _ = device_profile(
                 torch, lambda: analysis.batched_logl(u[:b]))
             say("me2017_profile", batch=b, wall_ms=f"{ms:.4f}",
                 device_busy_ms=f"{busy:.4f}",
@@ -485,6 +570,7 @@ def me2017_path(np, torch, gen, sample_times):
         "launches": launches, "launches_batched_logl": logl_launches,
         "max_abs_err": max_err, **worst,
         "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
+        "ms_sampler_batch": k2_ms_small,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
     }
 
@@ -671,7 +757,7 @@ def grb_path(np, torch, gen):
         walk = cfg.sampler.n_delete
         for b, ms in ((BATCH, logl_ms), (walk, throughput(
                 torch, lambda: analysis.batched_logl(u[:walk]))[0])):
-            busy, n_launch, top, k3_dev = device_profile(
+            busy, n_launch, top, k3_dev, _ = device_profile(
                 torch, lambda: analysis.batched_logl(u[:b]),
                 kernel="grb_eats")
             say("grb_profile", batch=b, wall_ms=f"{ms:.4f}",
@@ -892,22 +978,33 @@ def main() -> int:
                                f"(tolerance {K1_TOL} mag)")
         max_err = max(max_err, err)
         say("k1", batch=b, max_abs_err=f"{err:.3e}")
-    x = torch.rand((BATCH, svd.w1.shape[1]), generator=gen, device=DEVICE)
+    n_f, p, h = svd.w1.shape
+    c, q = svd.w2.shape[2], va_q.shape[2]
+
+    def k1_bound(n_b):
+        flops = 2.0 * n_b * n_f * (p * h + h * c + c * q)
+        n_bytes = 4.0 * (n_b * p + n_f * (p * h + h + h * c + c + c * q + q)
+                         + n_b * n_f * q)
+        return flops, n_bytes, 1e3 * max(flops / PEAK_F32_FLOPS,
+                                         n_bytes / PEAK_BYTES), \
+            "operations" if flops / PEAK_F32_FLOPS >= n_bytes / PEAK_BYTES \
+            else "bytes"
+
+    x = torch.rand((SAMPLER_BATCH, p), generator=gen, device=DEVICE)
+    k1_ms_small = kernel_device_ms(
+        torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights),
+        "svd_mlp_mags_kernel")
+    say("k1", batch=SAMPLER_BATCH, kernel_ms=f"{k1_ms_small:.4f}",
+        timed_by="profiler", bound_ms=f"{k1_bound(SAMPLER_BATCH)[2]:.4f}")
+    x = torch.rand((BATCH, p), generator=gen, device=DEVICE)
     k1_ms = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights))
     plain_ms = time_ms(
         torch, lambda: svd_kernel.svd_surrogate_mags_plain(x, *weights))
-    n_f, p, h = svd.w1.shape
-    c, q = svd.w2.shape[2], va_q.shape[2]
-    flops = 2.0 * BATCH * n_f * (p * h + h * c + c * q)
-    n_bytes = 4.0 * (BATCH * p + n_f * (p * h + h + h * c + c + c * q + q)
-                     + BATCH * n_f * q)
-    bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES)
-    bound_by = "operations" if flops / PEAK_F32_FLOPS >= \
-        n_bytes / PEAK_BYTES else "bytes"
+    flops, n_bytes, bound_ms, bound_by = k1_bound(BATCH)
     say("k1", batch=BATCH, kernel_ms=f"{k1_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, gflop=f"{flops / 1e9:.3f}",
-        mbytes=f"{n_bytes / 1e6:.3f}")
+        bound_by=bound_by, bound_share=f"{bound_ms / k1_ms:.4f}",
+        gflop=f"{flops / 1e9:.3f}", mbytes=f"{n_bytes / 1e6:.3f}")
 
     # 4. main path: photometry file -> EMAnalysis.batched_logl at B=8192
     make_svd_source_model(MODEL, svd)
@@ -950,7 +1047,7 @@ def main() -> int:
         # time, at this batch and at the sampler's walk batch
         for b, ms in ((BATCH, logl_ms), (128, throughput(
                 torch, lambda: analysis.batched_logl(u[:128]))[0])):
-            busy, n_launch, top, _ = device_profile(
+            busy, n_launch, top, _, _ = device_profile(
                 torch, lambda: analysis.batched_logl(u[:b]))
             say("profile", batch=b, wall_ms=f"{ms:.4f}",
                 device_busy_ms=f"{busy:.4f}",
@@ -1021,7 +1118,7 @@ def main() -> int:
         "launches": launches, "launches_batched_logl": logl_launches,
         "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms_sampler_batch": k1_ms_small, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -134,6 +134,21 @@ def me2017_dynamics_plain(shells, per_sample, per_step, with_ties=False):
     return ltot, r_photo
 
 
+def tied_operands(shells, stride):
+    """``shells`` with exact photosphere ties: shell s + ``stride`` takes
+    the m/vm^2, xn0 and xr of shell s wherever s // stride is even, so the
+    two have equal tau at every step while s keeps the larger vm. With
+    stride 1 the pair sits in two neighbouring lanes of the kernel's layout
+    (shell s in lane s % 32, slot s // 32), with stride 32 in one lane and
+    two neighbouring slots."""
+    out = shells.clone()
+    src = torch.arange(N_SHELLS - stride, device=shells.device)
+    src = src[(src // stride) % 2 == 0]
+    for row in (1, 3, 4):                  # m/vm^2, xn0, xr
+        out[row, :, src + stride] = shells[row, :, src]
+    return out
+
+
 def _check_operands(shells, per_sample, per_step):
     for name, t in (("shells", shells), ("per_sample", per_sample),
                     ("per_step", per_step)):

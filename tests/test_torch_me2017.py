@@ -17,6 +17,8 @@ from the JAX package's shell setup and the tau of ``_me2017_dynamics_xla``
 fails if more than 1% of its (live point, time) points are near-ties.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,8 +120,7 @@ def test_tie_rule_on_tied_shells():
     params = [torch.from_numpy(a) for a in draw(1, 7)]
     shells, per_sample, per_step = k2.me2017_operands(
         *params, torch.from_numpy(T_DAYS))
-    for row in (1, 3, 4):                  # m/vm^2, xn0, xr
-        shells[row, :, 1::2] = shells[row, :, 0:-1:2]
+    shells = k2.tied_operands(shells, 1)
     ltot, r_photo, gap, r_cand = k2.me2017_dynamics_plain(
         shells, per_sample, per_step, with_ties=True)
     tied = gap == 0
@@ -186,3 +187,167 @@ def test_wrapper_checks_its_operands():
     empty = k2.me2017_dynamics_from_operands(
         shells[:, :0].contiguous(), per_sample[:, :0].contiguous(), per_step)
     assert empty[0].shape == (0, 150)
+
+
+# --- the kernel's arithmetic, emulated on the CPU -------------------------
+#
+# csrc/me2017_dynamics.cu lays the 299 shells out as lane l, slot k <->
+# shell l + 32 k (slot 9 live in lanes 0-10 only). The emulations below
+# follow that layout and the kernel's order of operations, so that the CPU
+# pins what the card is held to: r_photo bit for bit, ltot within 1e-4.
+
+LANES = 32
+SLOTS = (k2.N_SHELLS + LANES - 1) // LANES
+LTOT_REL = 1e-4          # the card's gate on ltot (chip_smoke.py [k2])
+
+
+def _slots(a, fill):
+    """[B, 299] -> [B, SLOTS, LANES], the masked tail filled with `fill`."""
+    pad = torch.full((a.shape[0], SLOTS * LANES - k2.N_SHELLS), fill,
+                     dtype=a.dtype)
+    return torch.cat([a, pad], dim=1).reshape(a.shape[0], SLOTS, LANES)
+
+
+def _fma32(a, b, c):
+    """f32 FMA: the product exact in float64, one rounding to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_sum(v):
+    """The kernel's sum of the lane partials v [B, LANES]: from 0, in lane
+    order, rounded to f32 at each step."""
+    s = torch.zeros(v.shape[0])
+    for lane in range(LANES):
+        s = s + v[:, lane]
+    return s
+
+
+def emulate_k2(shells, per_sample, per_step):
+    """(ltot [B, T], r_photo [B, T]) as the kernel computes them: tau
+    rounded op by op as the plain version rounds it; per lane the first
+    minimal |tau - 1| over the slots (strict <) and its vm; the minimum
+    over the lanes, then the largest vm over the lanes that hold it. The
+    luminosity chain: one f32 reciprocal of denom, FMAs for denom, edot,
+    the lane sums and the ene update; the lanes summed in lane order."""
+    mvm = _slots(shells[0], 1.0)
+    mvm2, vm, xn0, xr, dm = (_slots(a, 0.0) for a in shells[1:])
+    live = _slots(torch.ones_like(shells[0], dtype=torch.bool), False)
+    kappa_r, c_tdiff = per_sample[0][:, None, None], per_sample[1][:, None,
+                                                                  None]
+    kxr = kappa_r * xr
+    n_b, n_t = shells.shape[1], per_step.shape[1]
+    ltot = torch.zeros((n_b, n_t))
+    r_photo = torch.zeros((n_b, n_t))
+    ene = torch.zeros_like(mvm)
+    for j in range(n_t - 1):
+        t_j, dt_j, exp_j, edotr_j, tauc_j, toc_j, dtt_j = per_step[:, j]
+        q = c_tdiff / t_j
+        xn = xn0 * exp_j
+        kappa = 0.4 * ((1.0 - xn) - xr) + kxr
+        tau = (tauc_j * kappa) * mvm2
+        dev = torch.where(live, (tau - 1.0).abs(), math.inf)
+        lmin = torch.full((n_b, LANES), math.inf)
+        lvm = vm[:, 0].clone()
+        for k in range(SLOTS):
+            better = dev[:, k] < lmin
+            lmin = torch.where(better, dev[:, k], lmin)
+            lvm = torch.where(better, vm[:, k], lvm)
+        gmin = lmin.amin(dim=1, keepdim=True)
+        r_photo[:, j] = torch.where(lmin == gmin, lvm, 0.0).amax(dim=1) * t_j
+
+        tdiff = (q * kappa) * mvm
+        denom = _fma32(toc_j, vm, tdiff)
+        r = (1.0 / denom.double()).float()
+        lum = ene * r
+        part = torch.zeros((n_b, LANES))
+        for k in range(SLOTS):
+            part = _fma32(lum[:, k], dm[:, k], part)
+        ltot[:, j] = _lane_sum(part)
+        factor = _fma32(-dt_j, r, 1.0 - dtt_j).clamp(0.0, 1.0)
+        edot = _fma32(torch.tensor(3.2e14), xn, edotr_j)
+        ene = _fma32(factor, ene, dt_j * edot)
+    return ltot, r_photo
+
+
+def _operands(b, seed):
+    return k2.me2017_operands(*(torch.from_numpy(a) for a in draw(b, seed)),
+                              torch.from_numpy(T_DAYS))
+
+
+@pytest.mark.parametrize("case", ["main_b1", "main_b64", "ties_lanes",
+                                  "ties_slots"])
+def test_k2_lane_reduction_equals_plain_photosphere(case):
+    """The kernel's lane/slot reduction picks the plain version's
+    photosphere shell bit for bit: on main-path operands, and where pairs
+    of shells are exactly tied in two lanes (stride 1) or in two slots of
+    one lane (stride 32), where the first shell of the pair must win."""
+    shells, per_sample, per_step = _operands(
+        1 if case == "main_b1" else 64, 9)
+    if case.startswith("ties"):
+        shells = k2.tied_operands(shells, 1 if case == "ties_lanes" else 32)
+    _, r_plain, gap, r_cand = k2.me2017_dynamics_plain(
+        shells, per_sample, per_step, with_ties=True)
+    _, r_emu = emulate_k2(shells, per_sample, per_step)
+    assert torch.equal(r_emu, r_plain)
+    if case.startswith("ties"):
+        tied = gap == 0
+        assert int(tied.sum()) > 100, "the pairs never hold the photosphere"
+        # the first shell of a pair (the larger vm) wins
+        assert torch.equal(r_plain[tied], r_cand.amax(dim=-1)[tied])
+        # and on most of them the two shells' vm differ (off the vm = c
+        # plateau), so the tie-break decides r_photo
+        differ = r_cand[tied][:, 0] != r_cand[tied][:, 1]
+        assert int(differ.sum()) > 100
+
+
+def test_tied_operands_place_the_pairs():
+    """stride 1 ties shell 2i + 1 to 2i; stride 32 ties s + 32 to s for s in
+    the even slots; vm is never copied."""
+    shells, _, _ = _operands(2, 3)
+    for stride in (1, 32):
+        tied = k2.tied_operands(shells, stride)
+        assert torch.equal(tied[[0, 2, 5]], shells[[0, 2, 5]])
+        src = torch.tensor([s for s in range(k2.N_SHELLS - stride)
+                            if (s // stride) % 2 == 0])
+        assert len(src) > 100
+        for row in (1, 3, 4):
+            assert torch.equal(tied[row][:, src + stride],
+                               shells[row][:, src])
+        untouched = torch.ones(k2.N_SHELLS, dtype=torch.bool)
+        untouched[src + stride] = False
+        assert torch.equal(tied[:, :, untouched], shells[:, :, untouched])
+
+
+def test_k2_lane_reduction_on_the_masked_tail_slot():
+    """Late in the grid every shell is optically thin and the photosphere
+    is the last shell, 298, in the last slot, whose lanes 11-31 are
+    masked: the reduction must take it there and agree bit for bit."""
+    shells, per_sample, per_step = _operands(64, 11)
+    _, r_plain = k2.me2017_dynamics_plain(shells, per_sample, per_step)
+    _, r_emu = emulate_k2(shells, per_sample, per_step)
+    vm = shells[2]
+    t = per_step[0]
+    in_tail = torch.zeros_like(r_plain, dtype=torch.bool)
+    for s in range(LANES * (SLOTS - 1), k2.N_SHELLS):
+        in_tail |= (r_plain == vm[:, s:s + 1] * t) & (r_plain > 0)
+    assert int(in_tail.sum()) > 0, "no photosphere in the last slot"
+    assert int(in_tail.any(dim=1).sum()) > 0
+    assert torch.equal(r_emu, r_plain)
+
+
+def test_k2_reciprocal_chain_stays_within_the_card_gate():
+    """The kernel's luminosity chain (one f32 reciprocal of denom, FMAs,
+    the lanes summed in lane order) stays within 1e-4 relative of the plain
+    version's ltot wherever ltot > 1e-4, on the main path's grid at
+    B = 64: the gate chip_smoke.py holds the card to."""
+    shells, per_sample, per_step = _operands(64, 2017)
+    l_plain, _ = k2.me2017_dynamics_plain(shells, per_sample, per_step)
+    l_emu, _ = emulate_k2(shells, per_sample, per_step)
+    sel = l_plain > 1e-4
+    assert int(sel.sum()) > 1000
+    rel = ((l_emu - l_plain).abs() / l_plain)[sel]
+    print("ltot max rel", float(rel.max()))
+    assert float(rel.max()) <= LTOT_REL
+    # the emulation does round otherwise: it is not the plain loop itself
+    assert not torch.equal(l_emu, l_plain)
+    assert not l_emu[:, -1].any()
