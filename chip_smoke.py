@@ -79,6 +79,25 @@ through K2 and K3:
               photometry, one batched_logl at B = 1024: one K2 and one K3
               launch, |dlogL| against the plain K2 and K3 off near-tie live
               points.
+ 13. cli      nmma_tpu_torch.cli.lightcurve_analysis.main([config.yaml])
+              in-process on the production surrogate (9 filters, Q = 150):
+              photometry from an injection json, Ebv shaped by --Ebv-max,
+              yaml systematics with time nodes on one filter group, G23-MW
+              extinction, a checkpoint after every chunk; nested sampling
+              (nlive=512, walks=8, dlogz=0.5) to convergence. logZ,
+              iterations, calls and seconds; K1 launches 2 + iterations x
+              walks (the injection's light curve, the initial live set, one
+              per walk step), no K2 or K3 launch; every result file and the
+              checkpoint; main([config, "--skip-sampling"]) must regenerate
+              the run's logZ bit for bit.
+ 14. kn_models
+              HoNa2020, blackbody_fixedT, PL_BB_fixedT and
+              synchrotron_powerlaw (plain PyTorch, no kernel): batched_logl
+              at B = 8192 on photometry each model makes at its injection,
+              with finite share, evals/s, device-busy ms of one profiled
+              call and peak memory; then the card against the port on the
+              CPU at B = 128 on the same unit points (rtol 1e-4, atol 1e-2,
+              identical sentinels).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -188,6 +207,64 @@ COMBINED_INJECTION = {"log10_mej": -1.3, "log10_vej": -1.1, "beta": 3.0,
                       "log10_epsilon_e": -1.2, "log10_epsilon_B": -3.0,
                       "xi_N": 1.0, "luminosity_distance": 350.0,
                       "timeshift": 0.0}
+# the lightcurve-analysis CLI on the production surrogate: its config (keys
+# are the flags' destinations), the injection's extinction and trigger time
+# beside INJECTION, and yaml systematics with time nodes on one filter group
+CLI_CONFIG = {
+    "model": "Bu2019lm_cli", "label": "chip_smoke_cli",
+    "filters": "sdssu,ztfg,ztfr,ztfi,ps1::z,ps1::y,2massj,2massh,2massks",
+    "tmin": 0.25, "tmax": 12.0, "ebv-max": 0.5,
+    "extinction-law": "G23_MW", "nlive": 512, "n-delete": 128, "walks": 8,
+    "dlogz": 0.5,
+    "check-point-delta-t": 0.0, "seed": 7,
+}
+CLI_INJECTION = {"Ebv": 0.1, "trigger_time": TRIGGER_MJD}
+CLI_SYSTEMATICS = {
+    "optical": {"filters": ["ztfg", "ztfr", "ztfi"], "time_nodes": 3,
+                "time_range": "linear 0.5 12.0",
+                "prior": "Uniform(minimum=0.0, maximum=1.0)"},
+    "rest": {"prior": "Uniform(minimum=0.0, maximum=1.0)"},
+}
+# the kilonova models without a kernel: (prior, injection, grid start)
+KN_MODELS = {
+    "HoNa2020": ("""\
+log10_mej = Uniform(minimum=-2.5, maximum=-1.)
+vej_min = Uniform(minimum=0.03, maximum=0.08)
+vej_max = Uniform(minimum=0.2, maximum=0.4)
+vej_frac = Uniform(minimum=0.2, maximum=0.8)
+log10_kappa_low_vej = Uniform(minimum=-0.5, maximum=0.5)
+log10_kappa_high_vej = Uniform(minimum=0.3, maximum=1.)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+""", {"log10_mej": -1.5, "vej_min": 0.05, "vej_max": 0.3, "vej_frac": 0.5,
+      "log10_kappa_low_vej": 0.0, "log10_kappa_high_vej": 0.7,
+      "luminosity_distance": 40.0, "timeshift": 0.0}, 0.05),
+    "blackbody_fixedT": ("""\
+log10_bb_luminosity = Uniform(minimum=40., maximum=42.)
+temperature = Uniform(minimum=3000., maximum=10000.)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+""", {"log10_bb_luminosity": 41.0, "temperature": 5000.0,
+      "luminosity_distance": 40.0, "timeshift": 0.0}, 0.01),
+    "PL_BB_fixedT": ("""\
+log10_bb_luminosity = Uniform(minimum=40., maximum=42.)
+temperature = Uniform(minimum=3000., maximum=10000.)
+beta = Uniform(minimum=0.5, maximum=2.)
+powerlaw_mag = Uniform(minimum=18., maximum=24.)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+""", {"log10_bb_luminosity": 41.0, "temperature": 5000.0, "beta": 1.0,
+      "powerlaw_mag": 21.0, "luminosity_distance": 40.0,
+      "timeshift": 0.0}, 0.01),
+    "synchrotron_powerlaw": ("""\
+alpha_time = Uniform(minimum=0.5, maximum=1.5)
+beta_freq = Uniform(minimum=0.5, maximum=1.)
+F_ref = Uniform(minimum=1e9, maximum=1e11)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+""", {"alpha_time": 1.0, "beta_freq": 0.75, "F_ref": 1e10,
+      "luminosity_distance": 40.0, "timeshift": 0.0}, 0.01),
+}
 # f32 operations that K3's function needs, an FMA counted as two and a sin,
 # exp or log as one, from the steps of csrc/grb_eats.cu: per (live point,
 # ring, phi, r) the arrival-time map, its log, the cummax and the cap at 60;
@@ -918,6 +995,167 @@ def combined_logl(np, torch, gen):
             logl_median=f"{float(logl[usable].median()):.3f}")
 
 
+def cli_path(np, torch):
+    """Phase 13: the lightcurve-analysis CLI in-process on the production
+    surrogate through K1, with injection, Ebv shaping, yaml systematics,
+    G23-MW extinction and checkpoints; then --skip-sampling. Returns the
+    run's K1 launches."""
+    import yaml
+
+    from nmma_tpu_torch.cli import lightcurve_analysis
+    from nmma_tpu_torch.injections import write_injection_file
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        with open(os.path.join(tmp, "bu2019lm.prior"), "w") as f:
+            f.write(PRIOR_TEXT)
+        write_injection_file(os.path.join(tmp, "injection.json"), {
+            k: [v] for k, v in {**INJECTION, **CLI_INJECTION}.items()})
+        with open(os.path.join(tmp, "systematics.yaml"), "w") as f:
+            yaml.safe_dump(CLI_SYSTEMATICS, f)
+        config = {**CLI_CONFIG, "svd-path": ARTIFACT,
+                  "prior": os.path.join(tmp, "bu2019lm.prior"),
+                  "injection": os.path.join(tmp, "injection.json"),
+                  "systematics-file": os.path.join(tmp, "systematics.yaml"),
+                  "outdir": os.path.join(tmp, "outdir")}
+        config_path = os.path.join(tmp, "run.yaml")
+        with open(config_path, "w") as f:
+            yaml.safe_dump(config, f)
+
+        t0 = time.time()
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+            grb_kernel.LAUNCHES = 0
+        analysis = lightcurve_analysis.main([config_path])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
+                    grb_kernel.LAUNCHES)
+        result = analysis.result
+        walks = analysis.config.sampler.walks
+        # the injection's light curve, the initial live set, one batch per
+        # walk step
+        expected = 1 + 1 + result.niter * walks
+        if not math.isfinite(result.logz) or \
+                analysis.device.type != torch.device(DEVICE).type:
+            raise RuntimeError(f"CLI run on {analysis.device}: logZ "
+                               f"{result.logz}")
+        if launches != (expected, 0, 0):
+            raise RuntimeError(f"the CLI launched K1, K2, K3 {launches} "
+                               f"times; expected ({expected}, 0, 0)")
+        if analysis.model.extinction_law != "G23_MW" or not {
+                "Ebv", "em_syserr_optical_2"} <= set(
+                    analysis.priors.sampled_names):
+            raise RuntimeError("the CLI run lost its Ebv, systematics or "
+                               "extinction configuration")
+        # no wall-clock cap: a run short of max_iter ended on dlogz
+        if result.niter >= analysis.config.sampler.max_iter:
+            raise RuntimeError(f"the CLI run did not converge in "
+                               f"{result.niter} iterations")
+        label = os.path.join(config["outdir"], config["label"])
+        for suffix in ("_result.npz", "_result_meta.json",
+                       "_posterior_samples.csv", "_checkpoint_resume.npz",
+                       "_config_complete.ini"):
+            if not os.path.exists(label + suffix):
+                raise RuntimeError(f"the CLI wrote no {suffix}")
+        os.remove(label + "_result.npz")
+        again = lightcurve_analysis.main([config_path, "--skip-sampling"])
+        regenerated = float(np.load(label + "_result.npz")["logz"])
+        if again.result.logz != result.logz or regenerated != result.logz:
+            raise RuntimeError(f"--skip-sampling gave logZ "
+                               f"{again.result.logz} ({regenerated} on "
+                               f"file), the run {result.logz}")
+        say("cli", logz=f"{result.logz:.4f}",
+            logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+            likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
+            ndim=analysis.priors.ndim, k1_launches=launches[0],
+            k1_expected=f"2+{result.niter}x{walks}", k2_launches=launches[1],
+            k3_launches=launches[2],
+            skip_sampling_logz=repr(again.result.logz))
+    return launches[0]
+
+
+def kn_models(np, torch, gen):
+    """Phase 14: HoNa2020, blackbody_fixedT, PL_BB_fixedT and
+    synchrotron_powerlaw through EMAnalysis.batched_logl at B = BATCH on
+    photometry each model makes at its injection; the card against the port
+    on the CPU at B = 128 on the same unit points."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+
+    filters = ["sdssu", "ztfg", "ztfr", "ztfi", "2massks"]
+    for model, (prior_text, injection, tmin) in KN_MODELS.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kn_") as tmp:
+            data_path = os.path.join(tmp, "injection.dat")
+            prior_path = os.path.join(tmp, "model.prior")
+            with open(prior_path, "w") as f:
+                f.write(prior_text)
+            synthetic_photometry(np, torch, model, filters, data_path,
+                                 injection, sample_times=(tmin, 14.0, 150),
+                                 epochs=(0.5, 12.0))
+            cfg = EMAnalysisConfig(
+                model=model, prior_file=prior_path,
+                light_curve_data=data_path, trigger_time=TRIGGER_MJD,
+                data_tmax=12.5, tmin=tmin, filters=filters,
+                outdir=os.path.join(tmp, "outdir"))
+            analysis = EMAnalysis(cfg, device=DEVICE)
+            u = analysis.priors.sample_units(gen, BATCH)
+            analysis.batched_logl(u[:128])      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mb = torch.cuda.memory_allocated() / 2**20
+            svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+                grb_kernel.LAUNCHES = 0
+            logl = analysis.batched_logl(u)
+            torch.cuda.synchronize()
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
+                        grb_kernel.LAUNCHES)
+            if launches != (0, 0, 0):
+                raise RuntimeError(f"{model} launched K1, K2, K3 {launches} "
+                                   "times")
+            if logl.shape != (BATCH,) or torch.isnan(logl).any():
+                raise RuntimeError(f"bad {model} logL {logl.shape}")
+            usable = logl > -1e29
+            finite_share = float(usable.float().mean())
+            if finite_share < 0.5:
+                raise RuntimeError(f"only {finite_share:.3f} of {model} "
+                                   "logL finite")
+            logl_ms, calls, round_ms = throughput(
+                torch, lambda: analysis.batched_logl(u))
+            busy, n_launch = device_profile(
+                torch, lambda: analysis.batched_logl(u))[:2]
+
+            # the card against the port on the CPU, same unit points
+            on_cpu = EMAnalysis(cfg, device="cpu")
+            u_small = u[:128]
+            got = analysis.batched_logl(u_small).cpu()
+            want = on_cpu.batched_logl(u_small.cpu())
+            if not torch.equal(got > -1e29, want > -1e29):
+                raise RuntimeError(f"{model}: sentinel positions differ "
+                                   "between the card and the CPU")
+            ok = want > -1e29
+            dlogl = (got - want)[ok].abs()
+            if bool((dlogl > LOGL_ATOL + LOGL_RTOL * want[ok].abs()).any()):
+                raise RuntimeError(f"{model}: the card's logL is "
+                                   f"{float(dlogl.max())} off the CPU's")
+            logl_inj = float(analysis.batched_logl(
+                injection_units(analysis.priors, injection))[0])
+            if not logl_inj > float(logl[usable].median()):
+                raise RuntimeError(f"{model}: injection logL {logl_inj} "
+                                   "below the median")
+            say("kn_models", model=model, batch=BATCH,
+                finite_share=f"{finite_share:.4f}", calls=calls,
+                wall_ms=f"{logl_ms:.4f}",
+                evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+                evals_per_s_rounds=",".join(
+                    f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
+                device_busy_ms=f"{busy:.4f}", kernel_launches=n_launch,
+                peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+                cpu_batch=u_small.shape[0], cpu_finite=int(ok.sum()),
+                max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
+                logl_injection=f"{logl_inj:.3f}")
+
+
 def main() -> int:
     import torch
 
@@ -1111,12 +1349,14 @@ def main() -> int:
     k2_entry = me2017_path(np, torch, gen, sample_times)
     k3_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
+    cli_launches = cli_path(np, torch)
+    kn_models(np, torch, gen)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
         "replaces": "nmma_tpu/ops/pallas_svd.py:37",
         "launches": launches, "launches_batched_logl": logl_launches,
-        "max_abs_err": max_err,
+        "launches_cli": cli_launches, "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "ms_sampler_batch": k1_ms_small, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, k2_entry, k3_entry]

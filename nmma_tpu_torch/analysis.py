@@ -42,6 +42,7 @@ class EMAnalysisConfig:
     extinction_law: str = "P92_SMC_host"
     time_format: str = "mjd"
     error_budget: float = 1.0
+    systematics_file: str = None
     detection_limit: float = np.inf
     remove_nondetections: bool = False
     outdir: str = "outdir"
@@ -100,7 +101,14 @@ class EMAnalysis:
 
         photo, _ = PhotometryData.from_dict(data, self.filters,
                                             device=self.device)
-        systematics = SystematicsModel(self.filters, None, cfg.error_budget)
+        systematics = SystematicsModel(
+            self.filters, cfg.systematics_file, cfg.error_budget,
+            model_time_range=(cfg.tmin, cfg.tmax))
+        # yaml-requested systematics parameters join the sampled priors
+        # (reference create_prior_from_args wiring, em/prior.py:221-244)
+        sys_priors = systematics.create_priors()
+        if sys_priors:
+            self.priors = PriorDict({**self.priors.priors, **sys_priors})
         systematics.finalize(list(self.priors.keys()))
         self.likelihood = EMLikelihood(
             self.model, photo, self.filters, systematics,
@@ -122,12 +130,22 @@ class EMAnalysis:
                           for c in u.split(self.MAX_BATCH)])
 
     # -- sampling -----------------------------------------------------------
-    def run(self, verbose=True):
+    def checkpoint_path(self):
         cfg = self.config
-        os.makedirs(cfg.outdir, exist_ok=True)
-        sampler = NestedSampler(self.batched_logl, self.priors.ndim,
-                                cfg.sampler, device=self.device)
-        self.result = sampler.run(verbose=verbose)
+        return os.path.join(cfg.outdir, f"{cfg.label}_checkpoint_resume.npz")
+
+    def sampler(self):
+        return NestedSampler(self.batched_logl, self.priors.ndim,
+                             self.config.sampler, device=self.device)
+
+    def run(self, verbose=True, checkpoint=True):
+        """Nested sampling, then the result files. With ``checkpoint`` the
+        run writes ``{label}_checkpoint_resume.npz`` in the output directory
+        and resumes from it when it is there."""
+        os.makedirs(self.config.outdir, exist_ok=True)
+        ckpt = self.checkpoint_path() if checkpoint else None
+        self.result = self.sampler().run(
+            verbose=verbose, checkpoint_path=ckpt, resume=checkpoint)
         self.save_result()
         return self.result
 

@@ -1,0 +1,219 @@
+"""``lightcurve-analysis`` — EM-only parameter estimation from the command
+line, on the CUDA card.
+
+Port of the nested-sampling path of ``nmma_tpu/cli/lightcurve_analysis.py``
+(the reference's ``nmma.em.analysis:main``): config-file-first parsing,
+data or injection, prior shaping, model and likelihood assembly, nested
+sampling with checkpoint and resume, result files. Run it as
+
+    python -m nmma_tpu_torch.cli.lightcurve_analysis config.yaml [flags]
+
+It runs on the CUDA card and raises without one, unless ``--device cpu``
+(or ``main(..., device="cpu")``) asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+
+from .. import resolve_device
+from .parsing import (apply_config, base_analysis_parser, check_for_config,
+                      sampler_config_from_args, write_complete_config)
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not in nmma_tpu_torch yet (ROADMAP item {item})")
+
+
+def main(cli_args=None, device=None):
+    """Run the analysis the arguments describe; returns the EMAnalysis (of
+    the last sub-run with --multi/--matrix). ``device`` overrides
+    ``--device``."""
+    config, argv = check_for_config(cli_args)
+    parser = base_analysis_parser("EM transient parameter estimation")
+    args = apply_config(parser, config, argv)
+    device = resolve_device(device if device is not None else args.device)
+    args.device = str(device)
+
+    from .multi import expand_runs
+    sub_runs = expand_runs(args)
+    if len(sub_runs) > 1:
+        out = None
+        for run_args in sub_runs:
+            print(f"=== sub-run {run_args.label} ===")
+            out = _single_run(run_args, device)
+        return out
+    return _single_run(args, device)
+
+
+def lbol_main(cli_args=None):
+    """``lightcurve-analysis-lbol``, the bolometric path."""
+    raise _not_ported("the bolometric analysis (lbol_main)", 14)
+
+
+def _check_supported(args):
+    """Raise for the options whose modules the port does not have yet."""
+    if args.sampler == "mcmc":
+        raise _not_ported("--sampler mcmc (inference/mcmc.py)", 13)
+    if args.sampler == "neuralnet":
+        raise _not_ported("--sampler neuralnet (mlmodel/)", 18)
+    if args.sampler != "nmma-ns":
+        raise ValueError(f"unknown sampler {args.sampler!r}")
+    if args.fits_file:
+        raise _not_ported("--fits-file (io/fits.py)", 17)
+    if args.detection_limit_fits_file:
+        raise _not_ported("--detection-limit-fits-file (io/fits.py)", 17)
+    if args.bestfit:
+        raise _not_ported("--bestfit (plotting.py)", 19)
+    if args.plot:
+        raise _not_ported("--plot (plotting.py)", 19)
+    if args.fiesta_surrogates_dir:
+        raise _not_ported("fiesta surrogates (models/fiesta.py)", 14)
+
+
+def _single_run(args, device):
+    from ..analysis import EMAnalysis, EMAnalysisConfig
+    from ..models import get_source_model
+    from ..models.svd import SVDModelData, make_svd_source_model
+
+    _check_supported(args)
+    model_name = args.model
+    if args.svd_path:
+        svd = SVDModelData.load(args.svd_path, device=device)
+        model_name = make_svd_source_model(
+            model_name, svd, mag_ncoeff=args.svd_mag_ncoeff).name
+    else:
+        try:
+            get_source_model(model_name)
+        except KeyError:
+            # the JAX package resolves unknown names as fiesta surrogates
+            raise _not_ported(f"model {model_name!r}: fiesta surrogates "
+                              "(models/fiesta.py)", 14) from None
+
+    data = None
+    trigger_time = args.trigger_time or 0.0
+    if args.injection:
+        data, _, trigger_time = data_from_injection(args, device)
+    if args.injection_model and not args.injection:
+        raise ValueError("--injection-model needs --injection")
+
+    n_tsteps = args.n_tsteps
+    if args.tstep:
+        # reference quick-start --dt convention: a linear step over the
+        # model window sets the grid density
+        n_tsteps = max(int(round((args.tmax - args.tmin) / args.tstep)) + 1,
+                       8)
+    cfg = EMAnalysisConfig(
+        model=model_name,
+        prior_file=args.prior,
+        light_curve_data=args.light_curve_data,
+        trigger_time=trigger_time,
+        data_tmin=args.data_tmin, data_tmax=args.data_tmax,
+        filters=args.filters.split(",") if args.filters else None,
+        tmin=args.tmin, tmax=args.tmax, n_tsteps=n_tsteps,
+        timescale=args.timescale,
+        extinction_law=args.extinction_law,
+        time_format=args.time_format,
+        error_budget=args.em_error_budget,
+        systematics_file=args.systematics_file,
+        detection_limit=args.detection_limit,
+        remove_nondetections=args.remove_nondetections,
+        outdir=args.outdir, label=args.label,
+        model_kwargs={k: v for k, v in {
+            "grb_resolution": args.grb_resolution,
+            "jet_type": args.jet_type,
+            "n_theta": args.grb_ntheta,
+            "n_phi": args.grb_nphi,
+            "n_r": args.grb_nr,
+            "spread": False if args.grb_no_spread else None,
+        }.items() if v is not None},
+        sampler=sampler_config_from_args(args),
+    )
+    if args.fetch_Ebv_from_dustmap:
+        raise RuntimeError(
+            "--fetch-Ebv-from-dustmap needs the dustmaps SFD data, which "
+            "requires network access unavailable in this environment; "
+            "pass --Ebv-max or a fixed Ebv in the prior file instead")
+    analysis = EMAnalysis(cfg, data=data, priors=_shaped_priors(args),
+                          device=device)
+    write_complete_config(args)
+
+    if args.skip_sampling:
+        # with a checkpoint, regenerate the result files from it without
+        # sampling (reference --skip-sampling, nmma/core/base.py:307-314)
+        ckpt = analysis.checkpoint_path()
+        if os.path.exists(ckpt):
+            sampler = analysis.sampler()
+            state, dead = sampler.load_checkpoint(ckpt)
+            analysis.result = sampler._finalise(state, *dead)
+            analysis.save_result()
+            print(f"--skip-sampling: result regenerated from {ckpt} "
+                  f"(logz={analysis.result.logz:.3f}).")
+            return analysis
+        print("--skip-sampling: likelihood assembled; exiting before PE "
+              "(no checkpoint found to regenerate from).")
+        return analysis
+    result = analysis.run(verbose=True)
+    print(f"log-evidence: {result.logz:.3f} +/- {result.logz_err:.3f} "
+          f"({result.ncall} likelihood calls)")
+    return analysis
+
+
+def _shaped_priors(args):
+    """The prior file shaped by --Ebv-max/--use-Ebv, the conditional
+    inclination prior, --ignore-timeshift and --redshift (reference
+    create_prior_from_args, em/prior.py:221-244); None when no flag asks
+    for shaping, so the analysis reads the file itself."""
+    from ..priors import DeltaFunction, PriorDict, create_prior_from_args
+
+    if not (args.ebv_max > 0.0 or args.use_ebv
+            or args.conditional_gaussian_prior_thetaobs
+            or args.ignore_timeshift or args.redshift is not None):
+        return None
+    priors = create_prior_from_args(
+        args.prior,
+        Ebv_max=args.ebv_max if args.ebv_max > 0 else 0.5724,
+        use_Ebv=bool(args.ebv_max > 0 or args.use_ebv),
+        conditional_gaussian_prior_thetaObs=bool(
+            args.conditional_gaussian_prior_thetaobs),
+        conditional_gaussian_prior_N_sigma=float(
+            args.conditional_gaussian_prior_n_sigma))
+    pd = dict(priors.priors)
+    if args.ignore_timeshift:
+        pd["timeshift"] = DeltaFunction(peak=0.0, name="timeshift")
+    if args.redshift is not None:
+        pd["redshift"] = DeltaFunction(peak=float(args.redshift),
+                                       name="redshift")
+    return PriorDict(pd)
+
+
+def data_from_injection(args, device=None):
+    """Photometry synthesised from an injection file entry (reference
+    ``em/analysis.py:data_from_injection``, :18-31); returns (data, entry,
+    trigger time) and writes the data to --injection-outfile when given."""
+    from ..injections import create_light_curve_data, read_injection_entry
+    entry = read_injection_entry(args.injection, args.injection_num)
+    trigger_time = entry.get("trigger_time", 0.0)
+    filters = args.filters.split(",") if args.filters else ["ztfg", "ztfr",
+                                                            "ztfi"]
+    data = create_light_curve_data(
+        entry, model=args.injection_model or args.model,
+        filters=filters, tmin=args.tmin, tmax=args.tmax,
+        seed=args.generation_seed,
+        injection_error_budget=args.injection_error_budget,
+        detection_limit=args.detection_limit,
+        ztf_sampling=args.ztf_sampling,
+        ztf_uncertainties=args.ztf_uncertainties,
+        ztf_too=args.ztf_too, rubin_too_type=args.rubin_too_type,
+        device=device)
+    if args.injection_outfile:
+        from ..io import write_em_observations
+        os.makedirs(os.path.dirname(args.injection_outfile) or ".",
+                    exist_ok=True)
+        write_em_observations(args.injection_outfile, data)
+    return data, entry, trigger_time
+
+
+if __name__ == "__main__":
+    main()

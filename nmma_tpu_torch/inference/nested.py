@@ -11,20 +11,23 @@ reference's external samplers (``nmma/core/base.py:290-369``):
 * every chain step evaluates the likelihood on the whole chain batch;
 * deleting the j-th of K points from a set of n shrinks ln X by 1/(n - j);
 * the iteration loop is a Python loop; the host reads the state once per
-  ``chunk_size`` iterations to test termination, as the JAX package does
-  after each jitted chunk.
+  ``chunk_size`` iterations to test termination and to checkpoint, as the
+  JAX package does after each jitted chunk (reference cadence semantics:
+  ``check_point_delta_t``).
 
 Proposal-scale adaptation is Robbins-Monro toward a target acceptance rate.
 The random numbers come from a seeded ``torch.Generator``, so a run does
-not reproduce the JAX package's draws, only its statistics. Checkpointing
-waits for a later slice.
+not reproduce the JAX package's draws, only its statistics. A checkpoint
+holds the generator's state beside the sampler's, so a resumed run draws
+what the uninterrupted one would have drawn.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
 import numpy as np
@@ -46,6 +49,7 @@ class NestedSamplerConfig:
     chunk_size: int = 20         # iterations between termination checks
     seed: int = 42
     max_seconds: float = math.inf  # wall-clock cap, tested after each chunk
+    check_point_delta_t: float = 1800.0   # seconds (reference parsing.py:125)
 
 
 @dataclass
@@ -61,6 +65,7 @@ class NSState:
     n_propose: int
     n_call: int                  # total likelihood evaluations
     it: int                      # iteration counter
+    rng_state: torch.Tensor = None  # the generator's state, on checkpoints
 
 
 @dataclass
@@ -239,13 +244,52 @@ class NestedSampler:
         st.it += 1
         return dead_u, dead_logl, logw, log_x_after
 
-    def run(self, verbose=True) -> NestedSamplerResult:
+    def run(self, verbose=True, checkpoint_path=None,
+            resume=False) -> NestedSamplerResult:
+        """Sample until ``dlogz``, ``max_iter`` or ``max_seconds``.
+
+        With ``checkpoint_path`` the state is written there every
+        ``check_point_delta_t`` seconds (tested after each chunk), and
+        SIGTERM, SIGINT and SIGUSR1 write it and end the run after the
+        chunk in progress (reference signal discipline,
+        nmma/core/mpi_setup.py:639-649); the handlers are restored on
+        return. ``resume=True`` continues from the checkpoint when one
+        exists."""
+        interrupted = {"flag": False}
+        old_handlers = {}
+        if checkpoint_path is not None:
+            import signal
+
+            def _handler(signum, frame):
+                interrupted["flag"] = True
+
+            for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGUSR1):
+                try:
+                    old_handlers[sig] = signal.signal(sig, _handler)
+                except (ValueError, OSError):   # not the main thread
+                    pass
+        try:
+            return self._run_loop(verbose, checkpoint_path, resume,
+                                  interrupted)
+        finally:
+            if old_handlers:
+                import signal
+                for sig, handler in old_handlers.items():
+                    signal.signal(sig, handler)
+
+    def _run_loop(self, verbose, checkpoint_path, resume, interrupted):
         cfg = self.config
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
-        t0 = time.time()
-        st = self.init_state(gen)
-        dead = ([], [], [], [])
+        loaded = self.load_checkpoint(checkpoint_path) \
+            if resume and checkpoint_path is not None else None
+        if loaded is not None:
+            st, dead = loaded
+            gen.set_state(st.rng_state)
+        else:
+            st, dead = self.init_state(gen), ([], [], [], [])
+        t0 = t_last_ckpt = time.time()
+        n_call_0 = st.n_call
         while st.it < cfg.max_iter:
             chunk = ([], [], [], [])
             for _ in range(min(cfg.chunk_size, cfg.max_iter - st.it)):
@@ -261,14 +305,60 @@ class NestedSampler:
             elapsed = time.time() - t0
             if verbose:
                 eff = float(st.n_accept) / max(st.n_propose, 1)
+                rate = (st.n_call - n_call_0) / max(elapsed, 1e-9)
                 print(f"it={st.it:6d} ncall={st.n_call:9d} "
                       f"logz={logz:10.3f} dlogz={dlogz:8.4f} "
                       f"eff={eff:5.3f} scale={float(st.scale):7.4f} "
-                      f"evals/s={st.n_call / max(elapsed, 1e-9):8.0f}",
-                      flush=True)
+                      f"evals/s={rate:8.0f}", flush=True)
+            if checkpoint_path is not None and (
+                    interrupted["flag"]
+                    or time.time() - t_last_ckpt > cfg.check_point_delta_t):
+                st.rng_state = gen.get_state()
+                self.save_checkpoint(checkpoint_path, st, dead)
+                t_last_ckpt = time.time()
+            if interrupted["flag"]:
+                print("interrupt received: checkpoint written, exiting run "
+                      "loop (resume with resume=True)", flush=True)
+                break
             if dlogz < cfg.dlogz or elapsed > cfg.max_seconds:
                 break
         return self._finalise(st, *dead)
+
+    # -- checkpoints ----------------------------------------------------------
+    def save_checkpoint(self, path, state: NSState, dead):
+        """Write the state, the generator's state and the dead points to
+        ``path`` (an .npz), atomically by ``os.replace``."""
+        arrays = {f.name: _host(getattr(state, f.name))
+                  for f in fields(NSState)}
+        tmp = str(path) + ".tmp.npz"
+        np.savez(tmp, **arrays, **{
+            name: np.concatenate(parts) if parts else empty
+            for name, parts, empty in zip(
+                ("dead_u", "dead_logl", "dead_logw", "dead_logx"), dead,
+                (np.zeros((0, self.ndim), np.float32),
+                 *[np.zeros(0, np.float32)] * 3))})
+        os.replace(tmp, str(path))
+
+    def load_checkpoint(self, path):
+        """(state, dead points) from a checkpoint, the state's tensors on
+        the sampler's device and ``rng_state`` on the host; None when
+        ``path`` does not exist."""
+        if not os.path.exists(path):
+            return None
+        with np.load(path) as z:
+            values = {}
+            for f in fields(NSState):
+                a = z[f.name]
+                if f.name == "rng_state":
+                    values[f.name] = torch.from_numpy(a.copy())
+                elif f.name in ("n_propose", "n_call", "it"):
+                    values[f.name] = int(a)
+                else:
+                    values[f.name] = torch.from_numpy(a.copy()).to(
+                        self.device)
+            dead = tuple([z[name]] for name in (
+                "dead_u", "dead_logl", "dead_logw", "dead_logx"))
+        return NSState(**values), dead
 
     def _finalise(self, state, dead_u, dead_logl, dead_logw, dead_logx):
         """Result from the final live set and the dead points, on the host

@@ -4,8 +4,8 @@ Host-side (NumPy) port of ``nmma_tpu/io/photometry.py``, the counterpart
 of ``nmma/em/io.py:16-144`` and the data windowing utilities in
 ``nmma/em/utils.py:233-349``. The device never sees
 these dicts — ``likelihood.em.PhotometryData.from_dict`` pads them to dense
-masked tensors. The pandas-based model-table reader, the SkyPortal
-converter and the GPS trigger-time helpers wait for a later slice.
+masked tensors. pandas is imported only by the model-table reader and the
+SkyPortal converter.
 
 Standard in-memory format (identical to the reference):
 ``{filter_name: {"time": [...MJD], "mag": [...], "mag_error": [...]}}``
@@ -37,6 +37,57 @@ def mjd_from_isot(stamp: str) -> float:
     return delta.days + delta.seconds / 86400.0 + delta.microseconds / 86400e6
 
 
+# leap seconds since the GPS epoch (UTC dates when TAI-UTC increased);
+# GPS time = UTC + (leap seconds since 1980-01-06)
+_LEAP_SECOND_MJDS = [
+    44786, 45151, 45516, 46247, 47161, 47892, 48257, 48804, 49169, 49534,
+    50083, 50630, 51179, 53736, 54832, 56109, 57204, 57754,
+]
+_GPS_EPOCH_MJD = 44244.0
+
+
+def gps_to_mjd(gps_time: float) -> float:
+    """GPS seconds -> MJD (UTC), with the leap-second table (the
+    reference's astropy ``Time(format='gps').mjd`` in ``read_trigger_time``,
+    nmma/core/utils.py:49-82)."""
+    mjd_approx = _GPS_EPOCH_MJD + gps_time / 86400.0
+    leap = sum(1 for m in _LEAP_SECOND_MJDS if m <= mjd_approx)
+    return _GPS_EPOCH_MJD + (gps_time - leap) / 86400.0
+
+
+def mjd_to_gps(mjd: float) -> float:
+    leap = sum(1 for m in _LEAP_SECOND_MJDS if m <= mjd)
+    return (mjd - _GPS_EPOCH_MJD) * 86400.0 + leap
+
+
+def read_trigger_time(parameters=None, trigger_time=None, gps=None,
+                      time_format="mjd", out_format="mjd"):
+    """A trigger time in MJD (or GPS with ``out_format='gps'``); None when
+    nothing gives one. Priority: parameters['trigger_time'] (mjd) >
+    parameters['geocent_time_x'] / ['geocent_time'] (gps) > ``gps`` >
+    ``trigger_time`` (mjd, ISO string, or gps with ``time_format='gps'``)."""
+    value_mjd = None
+    if parameters:
+        if "trigger_time" in parameters:
+            value_mjd = float(parameters["trigger_time"])
+        elif "geocent_time_x" in parameters:
+            value_mjd = gps_to_mjd(float(parameters["geocent_time_x"]))
+        elif "geocent_time" in parameters:
+            value_mjd = gps_to_mjd(float(parameters["geocent_time"]))
+    if value_mjd is None and gps is not None:
+        value_mjd = gps_to_mjd(float(gps))
+    if value_mjd is None and trigger_time is not None:
+        if isinstance(trigger_time, str):
+            value_mjd = mjd_from_isot(trigger_time)
+        elif time_format == "gps":
+            value_mjd = gps_to_mjd(float(trigger_time))
+        else:
+            value_mjd = float(trigger_time)
+    if value_mjd is None:
+        return None
+    return value_mjd if out_format == "mjd" else mjd_to_gps(value_mjd)
+
+
 def _parse_time(token: str, time_format: str = "mjd") -> float:
     try:
         return float(token)
@@ -60,6 +111,26 @@ def _read_observations_csv(filename, time_format="mjd"):
             entry["mag"].append(mag)
             entry["mag_error"].append(dmag)
     return data
+
+
+def _read_model_csv(filename):
+    """Model table: columns time filt1 ... filtN [filt1_error ...]
+    (reference :83-97), whitespace-separated or json."""
+    import pandas as pd
+    try:
+        df = pd.read_csv(filename, sep=r"\s+")
+    except Exception:
+        df = pd.read_json(filename, orient="columns")
+    cols = df.to_dict(orient="list")
+    time = cols.pop("time")
+    return {
+        filt: {
+            "time": time,
+            "mag": mags,
+            "mag_error": cols.get(filt + "_error", list(np.zeros(len(time)))),
+        }
+        for filt, mags in cols.items() if not filt.endswith("_error")
+    }
 
 
 def _read_json(filename):
@@ -95,6 +166,8 @@ def load_em_observations(filename, format="observations", time_format="mjd"):
         data = _read_json(filename)
     elif "obs" in format:
         data = _read_observations_csv(filename, time_format)
+    elif "model" in format:
+        data = _read_model_csv(filename)
     else:
         raise ValueError(f"Unknown photometry format {format!r}")
     return {
@@ -151,6 +224,26 @@ def write_em_observations(path, data, fmt=None):
             for t, m, e in zip(sub["time"], sub["mag"], sub["mag_error"]):
                 fh.write(f"{t} {filt} {m} {e}\n")
     return path
+
+
+def convert_skyportal_lcs(csv_path, out_path=None):
+    """SkyPortal photometry csv (columns mjd, filter, mag, magerr; a
+    non-detection has no mag and a limiting_mag) -> nmma-standard
+    whitespace .dat file (``convert_skyportal_lcs``, nmma/em/io.py:193-232).
+    Returns the path written."""
+    import pandas as pd
+    df = pd.read_csv(csv_path)
+    if out_path is None:
+        out_path = str(csv_path).rsplit(".", 1)[0] + ".dat"
+    with open(out_path, "w") as f:
+        for _, row in df.iterrows():
+            mag = row.get("mag")
+            err = row.get("magerr")
+            if mag is None or (isinstance(mag, float) and np.isnan(mag)):
+                mag = row.get("limiting_mag", np.nan)
+                err = np.inf
+            f.write(f"{row['mjd']} {row['filter']} {mag} {err}\n")
+    return out_path
 
 
 def remove_nondetections(data):

@@ -28,7 +28,8 @@ from .. import resolve_device
 from ..cosmology import distance_modulus, get_cosmology
 from ..filters import (filters_to_frequencies, filters_to_quadrature,
                        resolve_filter)
-from ..ops.extinction import band_extinction_mags_p92_smc
+from ..ops.extinction import (band_extinction_mags_mw,
+                              band_extinction_mags_p92_smc)
 
 def observation_angle_conversion(parameters):
     """KNtheta [deg] <-> inclination_EM [rad] <-> theta_jn completion
@@ -171,10 +172,10 @@ class DetectorLightCurveModel:
         self.sample_times = f32(sample_times if sample_times is not None
                                 else self.source.time_grid())
         self.cosmology = cosmology or get_cosmology()
-        if extinction_law != "P92_SMC_host":
+        if extinction_law not in ("P92_SMC_host", "G23_MW"):
             raise ValueError(
-                f"extinction_law {extinction_law!r}: the port has "
-                "'P92_SMC_host' only so far")
+                f"unknown extinction_law {extinction_law!r}; use "
+                "'P92_SMC_host' or 'G23_MW'")
         self.extinction_law = extinction_law
         # kernel rows -> requested rows; untrained filters become inf rows
         self._rows = self._untrained = None
@@ -222,8 +223,12 @@ class DetectorLightCurveModel:
         observable_times = t[None, :] * (1.0 + z)[:, None] \
             + p["timeshift"][:, None]
 
-        ext_mag = band_extinction_mags_p92_smc(
-            self.nu_nodes, self.nu_weights, p["Ebv"], z)        # [B, F]
+        if self.extinction_law == "G23_MW":
+            ext_mag = band_extinction_mags_mw(
+                self.nu_nodes, self.nu_weights, p["Ebv"])       # [B, F]
+        else:
+            ext_mag = band_extinction_mags_p92_smc(
+                self.nu_nodes, self.nu_weights, p["Ebv"], z)
         redshift_correction = -2.5 * torch.log10(1.0 + z)
         apparent = (mags + ext_mag[:, :, None]
                     + p["distance_modulus"][:, None, None]

@@ -20,6 +20,7 @@ its ``dense``/``batched`` forms are TPU layout heuristics.
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -125,6 +126,25 @@ class SVDModelData(nn.Module):
         self._ops[id(t_days)] = (t_days, ops)
         return ops
 
+    def truncated(self, n_coeff):
+        """The surrogate with only its first ``n_coeff`` SVD coefficients:
+        the dropped columns of W2 and b2 and rows of the basis are zeroed,
+        so K1 keeps its C and the dropped terms add exact zeros (the JAX
+        package's ``mag_ncoeff`` slices them away; the values agree). The
+        weights are shared with ``self`` where unchanged."""
+        if n_coeff is None or n_coeff >= self.n_coeff:
+            return self
+        out = copy.copy(self)
+        out._buffers = dict(self._buffers)
+        out.w2 = self.w2.clone()
+        out.w2[..., n_coeff:] = 0.0
+        out.b2 = self.b2.clone()
+        out.b2[..., n_coeff:] = 0.0
+        out._va_scaled = self._va_scaled.copy()
+        out._va_scaled[..., n_coeff:] = 0.0
+        out._ops = {}
+        return out
+
     def forward(self, params, t_days):
         """params {name: [B]} -> absolute magnitudes [B, F, Q] at t_days."""
         theta = torch.stack([params[p] for p in self.parameter_names], dim=1)
@@ -143,8 +163,12 @@ def svd_from_numpy(arrays: dict, device=None) -> SVDModelData:
     return SVDModelData(arrays, device)
 
 
-def make_svd_source_model(name: str, svd: SVDModelData) -> SourceModel:
-    """Register ``svd`` as source model ``name``."""
+def make_svd_source_model(name: str, svd: SVDModelData,
+                          mag_ncoeff=None) -> SourceModel:
+    """Register ``svd`` as source model ``name``, with its first
+    ``mag_ncoeff`` SVD coefficients when that is given."""
+    svd = svd.truncated(mag_ncoeff)
+
     def mags_fn(params, t_days, nu_host):
         return svd(params, t_days)
 

@@ -37,6 +37,26 @@ def interp(xq, xp, fp, left=None, right=None):
     return torch.where(xq > xp[-1], fp[-1] if right is None else right, f)
 
 
+def interp_rows(xq, xp, fp):
+    """``jnp.interp`` applied row by row: ``fp`` [B, N] against ``xp`` [N]
+    or [B, N] (ascending along N), queries ``xq`` [Q] or [B, Q]; returns
+    [B, Q] with constant extrapolation, by the formula of ``interp``."""
+    b, n = fp.shape
+    xp = xp.expand(b, n).contiguous()
+    xq = xq.expand(b, xq.shape[-1]).contiguous()
+    i = torch.clamp(torch.searchsorted(xp, xq, right=True), 1, n - 1)
+    x_lo, x_hi = xp.gather(1, i - 1), xp.gather(1, i)
+    f_lo, f_hi = fp.gather(1, i - 1), fp.gather(1, i)
+    dx = x_hi - x_lo
+    eps = torch.finfo(xp.dtype).eps
+    dx0 = dx.abs() <= eps * eps
+    f = torch.where(dx0, f_lo,
+                    f_lo + ((xq - x_lo) / torch.where(dx0, 1.0, dx))
+                    * (f_hi - f_lo))
+    f = torch.where(xq < xp[:, :1], fp[:, :1], f)
+    return torch.where(xq > xp[:, -1:], fp[:, -1:], f)
+
+
 def masked_interp(xq, x, y, valid=None, left=None, right=None,
                   fill_value=math.inf):
     """Interpolate ``y(x)`` onto ``xq`` ignoring invalid samples; constant

@@ -4,8 +4,9 @@ PyTorch counterpart of ``nmma_tpu/priors/core.py`` (the bilby prior layer
 the reference leans on, ``bilby.core.prior`` + ``nmma/em/prior.py``): every
 prior is a closed-form inverse-CDF transform ``u in [0,1] -> x`` on a
 ``[B]`` tensor, so a whole live-point batch ``[B, ndim]`` maps through
-``PriorDict.transform`` at once. Conditional priors and the astrophysical
-distance priors (UniformComovingVolume, ...) wait for a later slice.
+``PriorDict.transform`` at once. Conditional priors receive the parameters
+already transformed; priors are evaluated in declaration order (parents
+first), bilby's convention.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class Prior:
     """Base prior: named 1-D distribution with a unit-cube transform."""
 
     sampled = True       # participates in the unit-cube vector
+    conditional = False  # transform consumes previously transformed params
 
     def __init__(self, name=None, latex_label=None, minimum=-np.inf,
                  maximum=np.inf, unit=None, boundary=None):
@@ -255,6 +257,109 @@ class Interped(Prior):
         return torch.log(torch.clamp(dens, min=1e-30))
 
 
+class UniformComovingVolume(Interped):
+    """Luminosity-distance prior uniform in comoving volume
+    (``bilby.gw.prior.UniformComovingVolume``): p(d_L) ~ dV_c/dd_L under
+    the fiducial cosmology, tabulated on a dense d_L grid and inverted as an
+    Interped prior (nmma_tpu priors/core.py:259-283)."""
+
+    def __init__(self, minimum, maximum, name=None, latex_label=None,
+                 cosmology=None, **kwargs):
+        dl, z, dvc_ddl = _comoving_volume_density(minimum, maximum, cosmology)
+        super().__init__(dl, np.maximum(dvc_ddl, 0.0), minimum=minimum,
+                         maximum=maximum, name=name, latex_label=latex_label)
+
+
+class UniformSourceFrame(Interped):
+    """d_L prior uniform in comoving volume and source-frame time:
+    p(d_L) ~ (dV_c/dd_L) / (1 + z) (``bilby.gw.prior.UniformSourceFrame``)."""
+
+    def __init__(self, minimum, maximum, name=None, latex_label=None,
+                 cosmology=None, **kwargs):
+        dl, z, dvc_ddl = _comoving_volume_density(minimum, maximum, cosmology)
+        super().__init__(dl, np.maximum(dvc_ddl / (1.0 + z), 0.0),
+                         minimum=minimum, maximum=maximum, name=name,
+                         latex_label=latex_label)
+
+
+def _comoving_volume_density(minimum, maximum, cosmology=None):
+    """(d_L, z, dV_c/dd_L up to a constant) on 2048 nodes, float64: flat
+    dV_c/dz ~ D_c^2 / E(z) with D_c = d_L / (1 + z), times dz/dd_L of the
+    tabulated curve."""
+    from ..cosmology import get_cosmology
+    cosmo = cosmology or get_cosmology()
+    dl = np.linspace(float(minimum), float(maximum), 2048)
+    z = np.interp(dl, cosmo.dl_grid, cosmo.z_grid)
+    dc = dl / (1.0 + z)
+    dvc_dz = dc * dc * cosmo._inv_efunc(z)
+    return dl, z, dvc_dz * np.gradient(z, dl)
+
+
+class WeightedCategorical(Prior):
+    """Discrete prior over ``ncategories`` indices with optional weights
+    (the reference's ``WeightedCategorical``, nmma/eos/eos_likelihood.py
+    :21-32): the unit-cube coordinate inverts the weight CDF, and the
+    transform returns the category's midpoint ``index + 0.5`` as a float."""
+
+    def __init__(self, ncategories, weights=None, name=None,
+                 latex_label=None):
+        super().__init__(name=name, latex_label=latex_label, minimum=0.0,
+                         maximum=float(ncategories))
+        self.ncategories = int(ncategories)
+        if weights is None:
+            w = np.ones(self.ncategories, dtype=np.float64)
+        else:
+            w = np.asarray(weights, dtype=np.float64)
+            if len(w) != self.ncategories:
+                raise ValueError(
+                    f"{len(w)} weights for {self.ncategories} categories")
+        w = np.maximum(w, 0.0)
+        self._probs = w / w.sum()
+        cdf = np.concatenate([[0.0], np.cumsum(self._probs)])
+        cdf[-1] = 1.0
+        self._cdf = cdf
+        self._log_probs = np.log(np.maximum(self._probs, 1e-300))
+
+    def _table(self, values, like):
+        return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+
+    def transform(self, u):
+        # category = number of inner CDF edges at or below u
+        edges = self._table(self._cdf[1:-1], u)
+        idx = (u[..., None] >= edges).sum(dim=-1)
+        return idx.to(u.dtype) + 0.5
+
+    def log_prob(self, x):
+        idx = torch.clamp(torch.floor(x).long(), 0, self.ncategories - 1)
+        in_range = (x >= 0.0) & (x < self.ncategories)
+        return torch.where(in_range, self._table(self._log_probs, x)[idx],
+                           -math.inf)
+
+
+class ConditionalGaussianIotaGivenThetaCore(Prior):
+    """Half-Gaussian on iota with width ``N_sigma * thetaCore``, truncated
+    to [minimum, maximum] (``ConditionalGaussianIotaGivenThetaCore``,
+    nmma/em/prior.py:18-77)."""
+
+    conditional = True
+
+    def __init__(self, N_sigma=1.0, minimum=0.0, maximum=np.pi / 2,
+                 name=None, latex_label=None, **kwargs):
+        super().__init__(name=name, latex_label=latex_label, minimum=minimum,
+                         maximum=maximum)
+        self.n_sigma = float(N_sigma)
+
+    def transform(self, u, params=None):
+        sigma = self.n_sigma * params["thetaCore"]
+        sqrt2 = math.sqrt(2.0)
+        a = torch.special.erf(self.minimum / (sqrt2 * sigma))
+        b = torch.special.erf(self.maximum / (sqrt2 * sigma))
+        return sqrt2 * sigma * torch.erfinv(a + u * (b - a))
+
+    def log_prob(self, x):
+        raise NotImplementedError("conditional log_prob requires parent")
+
+
 class Constraint(Prior):
     """Range constraint on a derived parameter; not sampled.
 
@@ -320,8 +425,11 @@ class PriorDict:
 
     def transform(self, u):
         """u [B, ndim] -> {name: [B]}, fixed parameters included."""
-        params = {name: self.priors[name].transform(u[:, i])
-                  for i, name in enumerate(self.sampled_names)}
+        params = {}
+        for i, name in enumerate(self.sampled_names):
+            prior = self.priors[name]
+            params[name] = prior.transform(u[:, i], params) \
+                if prior.conditional else prior.transform(u[:, i])
         for name, prior in self.fixed.items():
             params[name] = torch.full(u.shape[:1], prior.transform(),
                                       dtype=u.dtype, device=u.device)
@@ -342,3 +450,75 @@ class PriorDict:
         """``[n, ndim]`` uniform unit-cube draws on the generator's device."""
         return torch.rand((n, self.ndim), generator=generator,
                           device=generator.device)
+
+
+class _SharedMultivariateGaussian:
+    """Host-side (float64) Cholesky factor shared by the per-parameter
+    components of one multivariate Gaussian block."""
+
+    def __init__(self, names, mean, cov):
+        self.names = list(names)
+        self.mean = np.asarray(mean, dtype=np.float64)
+        cov = np.asarray(cov, dtype=np.float64)
+        self.chol = np.linalg.cholesky(cov + 1e-12 * np.eye(len(self.mean)))
+        # leading-block inverses, to recover the whitened coordinates of
+        # the earlier components
+        self._inv_blocks = [None] + [np.linalg.inv(self.chol[:k, :k])
+                                     for k in range(1, len(self.mean))]
+
+
+class MultivariateGaussianComponent(Prior):
+    """One coordinate of a correlated Gaussian prior block (bilby's
+    ``MultivariateGaussian`` as the reference's HDF5 prior surgery uses it,
+    nmma/core/base.py:257-272). The joint map is x = mean + L z with
+    z = ndtri(u); component k is conditional on the earlier ones, whose
+    whitened coordinates are recovered from their transformed values, so the
+    components in order sample the joint distribution."""
+
+    def __init__(self, shared: _SharedMultivariateGaussian, index: int,
+                 name=None, latex_label=None):
+        sigma = float(np.sqrt(np.sum(shared.chol[index, :index + 1] ** 2)))
+        mu = float(shared.mean[index])
+        super().__init__(name=name or shared.names[index],
+                         latex_label=latex_label,
+                         minimum=mu - 10 * sigma, maximum=mu + 10 * sigma)
+        self.shared = shared
+        self.index = int(index)
+        self.conditional = self.index > 0
+
+    def transform(self, u, params=None):
+        sh, k = self.shared, self.index
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=u.dtype,
+                                   device=u.device)
+
+        z_k = torch.special.ndtri(torch.clamp(u, 1e-7, 1.0 - 1e-7))
+        x = f32(sh.mean[k]) + f32(sh.chol[k, k]) * z_k
+        if k > 0:
+            prev = torch.stack([params[sh.names[j]] for j in range(k)],
+                               dim=-1)
+            z_prev = (prev - f32(sh.mean[:k])) @ f32(sh._inv_blocks[k]).T
+            x = x + z_prev @ f32(sh.chol[k, :k])
+        return x
+
+    def log_prob(self, x):
+        if self.index > 0:
+            raise NotImplementedError(
+                "conditional log_prob requires the full block")
+        mu = float(self.shared.mean[0])
+        sig = float(self.shared.chol[0, 0])
+        return _normal_logpdf(x, mu, sig)
+
+
+def multivariate_gaussian_priors(names, mean=None, cov=None, samples=None):
+    """Ordered ``{name: prior}`` sampling a joint Gaussian, from
+    ``(mean, cov)`` or fitted to ``samples`` [N, D] (as the reference fits
+    the HDF5 sample columns)."""
+    if samples is not None:
+        samples = np.asarray(samples, dtype=np.float64)
+        mean = samples.mean(axis=0)
+        cov = np.cov(samples, rowvar=False)
+    shared = _SharedMultivariateGaussian(names, mean, cov)
+    return {name: MultivariateGaussianComponent(shared, i, name=name)
+            for i, name in enumerate(shared.names)}

@@ -4,8 +4,7 @@ Reads the reference's prior files (``priors/*.prior``) unchanged: each line
 is ``key = PriorClass(kwargs...)`` or ``key = <float>``. Expressions are
 evaluated in a restricted namespace exposing only the prior classes, numpy
 (as ``np``) and basic constants — the same effective surface bilby's
-``PriorDict.from_file`` offers. A class the port has not taken over yet
-(conditional and comoving-volume priors) fails as an undefined name.
+``PriorDict.from_file`` offers.
 """
 
 from __future__ import annotations
@@ -34,7 +33,11 @@ _NAMESPACE = {
     "LogGaussian": core.LogNormal,
     "Interped": core.Interped,
     "Constraint": core.Constraint,
+    "ConditionalGaussianIotaGivenThetaCore":
+        core.ConditionalGaussianIotaGivenThetaCore,
     "NMMADummyPrior": core.NMMADummyPrior,
+    "UniformComovingVolume": core.UniformComovingVolume,
+    "UniformSourceFrame": core.UniformSourceFrame,
 }
 
 

@@ -27,6 +27,7 @@ if bad or len(names) < 15:
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+from nmma_tpu_torch.cli import lightcurve_analysis
 from nmma_tpu_torch.inference import NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
@@ -38,6 +39,8 @@ ENTRY_POINTS = {
         "nonexistent-model-is-never-reached", ["g"]),
     "PhotometryData.from_dict": lambda: PhotometryData.from_dict(
         {"g": {"time": [1.0], "mag": [20.0], "mag_error": [0.1]}}),
+    "cli.lightcurve_analysis.main": lambda: lightcurve_analysis.main(
+        ["--model", "Me2017", "--skip-sampling"]),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():
