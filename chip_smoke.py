@@ -12,7 +12,9 @@ F=9, Q=150) through K1, the analytic Me2017 kilonova (299 shells, T=150,
 9 filters x 9 bandpass nodes) through K2, the TrPi2018 GRB afterglow at the
 JAX package's full resolution (48 rings x 16 phi nodes, 256 radii, stage 2
 on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
-through K2 and K3:
+through K2 and K3; then TrPi2018's energy ramp through K3's per-row mode,
+config 3's posterior against the JAX package's, the ensemble MCMC, and the
+supernova, shock-cooling, spectral and bolometric paths:
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -98,6 +100,42 @@ through K2 and K3:
               call and peak memory; then the card against the port on the
               CPU at B = 128 on the same unit points (rtol 1e-4, atol 1e-2,
               identical sentinels).
+ 15. k3_rowq  K3's per-row query mode (log_q [rows, 1], the energy ramp's
+              folded (live point, node) rows) against its plain version on
+              ramp-prior operands at 1, 1,000 and 4,096 rows and on the
+              hand-made edge rows with one query each (R = 100, 128, 256,
+              Ph = 5, 16): 1e-4 relative, zeros in the same places (on the
+              ramp-prior rows a subnormal counts as zero, as in the JAX
+              reference, which flushes them); its time and bound at 4,096
+              rows, and over the 91 chunks of the B = 8192 ramp's 524,288
+              rows.
+ 16. grb_ramp TrPi2018 on the quasi-static energy ramp at full resolution
+              (RAMP_PRIOR_TEXT): magnitudes and logL at B = 64 against the
+              plain K3 (1e-3 mag below FAINT_MAG, identical inf; the logL
+              gate of phase 10); batched_logl at B = 64 and 8192 with K3
+              launches equal to the chunks exactly, wall and device ms,
+              evals/s and peak memory; and the ramp's meaning (before
+              t_start the constant-E0(Estart) curve, after the injection
+              the constant-E0(Eend) one, between them inside both).
+ 17. posterior_config3
+              BASELINE config 3 to convergence at nlive=2048
+              (scripts/torch_parity_config3.py): K3 launches 1 + iterations
+              x walks, logZ against the JAX package's -59.4958 +- 0.0843
+              (within 5 combined errors) and JS per parameter against its
+              two reference posteriors in artifacts/, each below 0.01.
+ 18. mcmc     the [cli] configuration with --sampler mcmc (MCMC_WALKERS,
+              MCMC_SWEEPS, MCMC_TEMPS): K1 launches 2 + 2 x sweeps, max
+              R-hat <= 1.1, JS per parameter against the [cli] run's nested
+              posterior below 0.05, the result files.
+ 19. em_models
+              Piro2021, Sr2023 and a spectral template model
+              (tests/data/synthetic_sn_template.dat) through batched_logl,
+              Arnett and Arnett_modified through the bolometric likelihood,
+              at B = 8192 as phase 14, with the card against the CPU at
+              B = 128.
+ 20. lbol     lightcurve-analysis-lbol (lbol_main) on an Arnett csv from an
+              injection, to convergence at nlive=256: finite logZ and the
+              injection inside each parameter's 90% interval.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -265,6 +303,79 @@ timeshift = Uniform(minimum=-0.1, maximum=0.1)
 """, {"alpha_time": 1.0, "beta_freq": 0.75, "F_ref": 1e10,
       "luminosity_distance": 40.0, "timeshift": 0.0}, 0.01),
 }
+# TrPi2018 on the quasi-static energy ramp: config 3's prior with log10_E0
+# replaced by the ramp's four parameters, around the point of
+# tests/test_grb.py:287-293 (t_start and the ramp's end inside the grid)
+RAMP_PRIOR_TEXT = """\
+energy_exponential = Uniform(minimum=0.8, maximum=1.4)
+log10_Eend = Uniform(minimum=52., maximum=53.)
+t_start = Uniform(minimum=1e4, maximum=5e4)
+injection_duration = Uniform(minimum=1e6, maximum=3e6)
+""" + GRB_PRIOR_TEXT.split("\n", 1)[1]
+RAMP_INJECTION = {**{k: v for k, v in GRB_INJECTION.items()
+                     if k != "log10_E0"},
+                  "energy_exponential": 1.2, "log10_Eend": 52.5,
+                  "t_start": 2.0e4, "injection_duration": 2.0e6}
+# the folded live points of [k3_rowq] (x 64 nodes = 4,096 rows, the
+# sampler's B = 64 as one ramp chunk)
+RAMP_POINTS = 64
+# the ramp's magnitudes through K3 against the plain K3: the fused-hat gate
+# of tests/test_torch_grb.py; points fainter than FAINT_MAG (its rule) are
+# counted, not compared
+RAMP_MAG_TOL = 1e-3
+FAINT_MAG = 45.0
+# the ensemble MCMC on the [cli] configuration. ~70% of its prior volume is
+# the -1e30 sentinel, and untempered walkers stay on that plateau: 2,000
+# sweeps without a ladder read max R-hat 4.86 on the card (5.13 in the JAX
+# package on the CPU); an 8-rung ladder hands them to the hot rungs
+MCMC_WALKERS = 256
+MCMC_SWEEPS = 4000
+MCMC_TEMPS = 8
+MCMC_RHAT_GATE = 1.1
+MCMC_JS_GATE = 0.05
+# the supernova, shock-cooling and spectral models: (prior, injection,
+# model grid (tmin, tmax, n_tsteps, timescale), filters, epochs)
+SN_TEMPLATE = os.path.join(HERE, "tests", "data", "synthetic_sn_template.dat")
+EM_MODELS = {
+    "Piro2021": ("""\
+log10_Menv = Uniform(minimum=-2., maximum=-0.5)
+log10_Renv = Uniform(minimum=12., maximum=14.)
+log10_Ee = Uniform(minimum=49., maximum=51.)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.02, maximum=0.02)
+""", {"log10_Menv": -1.0, "log10_Renv": 13.0, "log10_Ee": 50.0,
+      "luminosity_distance": 40.0, "timeshift": 0.0},
+        (1.0 / 24.0, 3.5, 100, "log"), ["sdssu", "ztfg", "ztfr", "ztfi"],
+        (0.1, 3.0)),
+    "Sr2023": ("""\
+alpha_AG = Uniform(minimum=0.5, maximum=1.5)
+""" + "".join(f"""\
+a_AG_{f} = Uniform(minimum=1., maximum=100.)
+f_nu_{f} = Uniform(minimum=1., maximum=10.)
+host_mag_{f} = Uniform(minimum=20., maximum=24.)
+""" for f in ("ztfg", "ztfr", "ztfi")) + """\
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.1, maximum=0.1)
+""", {"alpha_AG": 1.0, "luminosity_distance": 40.0, "timeshift": 0.0,
+      **{f"{k}_{f}": v for f in ("ztfg", "ztfr", "ztfi")
+         for k, v in (("a_AG", 10.0), ("f_nu", 5.0), ("host_mag", 22.0))}},
+        (0.1, 20.0, 50, "log"), ["ztfg", "ztfr", "ztfi"], (0.5, 15.0)),
+    "sn_template_smoke": ("""\
+supernova_mag_boost = Uniform(minimum=-1., maximum=1.)
+luminosity_distance = Uniform(minimum=10., maximum=500.)
+timeshift = Uniform(minimum=-1., maximum=1.)
+""", {"supernova_mag_boost": 0.0, "luminosity_distance": 100.0,
+      "timeshift": 0.0},
+        (1.0, 60.0, 60, "linear"), ["sdssu", "ztfg", "ztfr", "ztfi"],
+        (3.0, 50.0)),
+}
+# the Arnett bolometric path: prior and injection of
+# tests/test_torch_em_models.py (lbol_data)
+ARNETT_PRIOR_TEXT = """\
+tau_m = Uniform(minimum=5., maximum=30.)
+log10_mni = Uniform(minimum=-2., maximum=0.)
+"""
+ARNETT_INJECTION = {"tau_m": 15.0, "log10_mni": -0.5}
 # f32 operations that K3's function needs, an FMA counted as two and a sin,
 # exp or log as one, from the steps of csrc/grb_eats.cu: per (live point,
 # ring, phi, r) the arrival-time map, its log, the cummax and the cap at 60;
@@ -329,7 +440,8 @@ def time_ms(torch, fn, rounds=25, launches=10, warmup=3):
 
 def throughput(torch, fn, rounds=5, round_s=0.4, warmup=3):
     """Host-clock rate of back-to-back ``fn()`` calls after warm-up: each
-    round calls ``fn`` until ``round_s`` has passed, then synchronizes.
+    round calls ``fn`` at least once and until ``round_s`` has passed, then
+    synchronizes.
     Returns (ms per call over all rounds, calls, [ms per call of each
     round])."""
     for _ in range(warmup):
@@ -339,7 +451,7 @@ def throughput(torch, fn, rounds=5, round_s=0.4, warmup=3):
     for _ in range(rounds):
         n = 0
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < round_s:
+        while n == 0 or time.perf_counter() - t0 < round_s:
             fn()
             n += 1
         torch.cuda.synchronize()
@@ -653,15 +765,17 @@ def me2017_path(np, torch, gen, sample_times):
 
 
 def k3_queries_in_range(torch, ops, rows=256):
-    """K3's (live point, ring, phi, t) queries whose log_q lies in
+    """K3's (row, ring, phi, t) queries whose log_q lies in
     [log_t[0], log_t[-1]], the ones that carry flux, counted on the card
-    in chunks of `rows` live points."""
+    in chunks of `rows` rows."""
     from nmma_tpu_torch.constants import c_cgs
     from nmma_tpu_torch.ops.grb_kernel import one_minus_mu
 
     t_delay, tracks, r_grid, scal, log_q, cphi = ops[:6]
     count = 0
     for s in range(0, t_delay.shape[0], rows):
+        # shared queries [T], or one a row [B, 1] (the energy ramp)
+        lq = log_q if log_q.dim() == 1 else log_q[s:s + rows, None, None]
         sc = scal[s:s + rows, :, None, None, None]           # [b, 8, 1, 1, 1]
         th_r = torch.exp(tracks[s:s + rows, 4])[:, :, None, :]
         t_obs = (1.0 + sc[:, 0]) * (
@@ -671,8 +785,34 @@ def k3_queries_in_range(torch, ops, rows=256):
         log_t = torch.log(torch.clamp(t_obs, min=1e-10))
         lo = torch.clamp(log_t[..., :1], max=60.0)
         hi = torch.clamp(log_t.amax(-1, keepdim=True), max=60.0)
-        count += int(((log_q >= lo) & (log_q <= hi)).sum())
+        count += int(((lq >= lo) & (lq <= hi)).sum())
     return count
+
+
+def k3_work(torch, ops):
+    """(f32 operations, bytes, queries in range, queries) that K3's function
+    needs on these operands: the map of every (row, ring, phi, r), the
+    in-range test of every query, and for a query in range the search, the
+    two hat nodes and the epilogue; each operand read and the output written
+    once."""
+    n_b, n_th, n_r = ops[0].shape
+    n_t, n_phi, n_f = ops[4].shape[-1], ops[5].shape[0], ops[7].shape[1]
+    queries = n_b * n_th * n_phi * n_t
+    in_range = k3_queries_in_range(torch, ops)
+    n_ops = (n_b * n_th * n_phi * n_r * K3_OPS_MAP + queries * K3_OPS_RANGE
+             + in_range * (K3_OPS_SEARCH_STEP * math.ceil(math.log2(n_r))
+                           + 2 * K3_OPS_NODE + K3_OPS_PAIR
+                           + K3_OPS_PAIR_F * n_f))
+    n_bytes = 4.0 * (sum(t.numel() for t in ops) + n_b * n_th * n_f * n_t)
+    return n_ops, n_bytes, in_range, queries
+
+
+def roofline_ms(n_ops, n_bytes):
+    """(ms, "operations" or "bytes"): the larger of the operations at the
+    f32 peak and the bytes at the memory rate."""
+    ops_s, bytes_s = n_ops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s >= bytes_s else "bytes"
 
 
 def grb_path(np, torch, gen):
@@ -756,21 +896,10 @@ def grb_path(np, torch, gen):
         k3_map_ms = time_ms(torch, lambda: k3.eats_flux(*above), rounds=5,
                             launches=2, warmup=1)
         del above
+        n_ops, n_bytes, in_range, queries = k3_work(torch, ops)
+        k3_bound_ms, k3_bound_by = roofline_ms(n_ops, n_bytes)
         n_b, n_th, n_r = ops[0].shape
         n_t, n_phi, n_f = ops[4].shape[0], ops[5].shape[0], ops[7].shape[1]
-        queries = n_b * n_th * n_phi * n_t
-        in_range = k3_queries_in_range(torch, ops)
-        map_ops = n_b * n_th * n_phi * n_r * K3_OPS_MAP
-        n_ops = (map_ops + queries * K3_OPS_RANGE
-                 + in_range * (K3_OPS_SEARCH_STEP * math.ceil(math.log2(n_r))
-                               + 2 * K3_OPS_NODE + K3_OPS_PAIR
-                               + K3_OPS_PAIR_F * n_f))
-        n_bytes = 4.0 * (sum(t.numel() for t in ops)
-                         + n_b * n_th * n_f * n_t)
-        k3_bound_ms = 1e3 * max(n_ops / PEAK_F32_FLOPS,
-                                n_bytes / PEAK_BYTES)
-        k3_bound_by = "operations" if n_ops / PEAK_F32_FLOPS >= \
-            n_bytes / PEAK_BYTES else "bytes"
         say("k3", batch=BATCH, kernel_ms=f"{k3_ms:.4f}",
             no_query_in_range_ms=f"{k3_map_ms:.4f}",
             plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound_ms:.4f}",
@@ -995,33 +1124,40 @@ def combined_logl(np, torch, gen):
             logl_median=f"{float(logl[usable].median()):.3f}")
 
 
+def cli_config(tmp):
+    """The [cli] run's prior, injection json, systematics yaml and config
+    yaml written under ``tmp``: (config dict, path of the yaml)."""
+    import yaml
+
+    from nmma_tpu_torch.injections import write_injection_file
+
+    with open(os.path.join(tmp, "bu2019lm.prior"), "w") as f:
+        f.write(PRIOR_TEXT)
+    write_injection_file(os.path.join(tmp, "injection.json"), {
+        k: [v] for k, v in {**INJECTION, **CLI_INJECTION}.items()})
+    with open(os.path.join(tmp, "systematics.yaml"), "w") as f:
+        yaml.safe_dump(CLI_SYSTEMATICS, f)
+    config = {**CLI_CONFIG, "svd-path": ARTIFACT,
+              "prior": os.path.join(tmp, "bu2019lm.prior"),
+              "injection": os.path.join(tmp, "injection.json"),
+              "systematics-file": os.path.join(tmp, "systematics.yaml"),
+              "outdir": os.path.join(tmp, "outdir")}
+    config_path = os.path.join(tmp, "run.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f)
+    return config, config_path
+
+
 def cli_path(np, torch):
     """Phase 13: the lightcurve-analysis CLI in-process on the production
     surrogate through K1, with injection, Ebv shaping, yaml systematics,
     G23-MW extinction and checkpoints; then --skip-sampling. Returns the
-    run's K1 launches."""
-    import yaml
-
+    run's K1 launches and its posterior."""
     from nmma_tpu_torch.cli import lightcurve_analysis
-    from nmma_tpu_torch.injections import write_injection_file
     from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        with open(os.path.join(tmp, "bu2019lm.prior"), "w") as f:
-            f.write(PRIOR_TEXT)
-        write_injection_file(os.path.join(tmp, "injection.json"), {
-            k: [v] for k, v in {**INJECTION, **CLI_INJECTION}.items()})
-        with open(os.path.join(tmp, "systematics.yaml"), "w") as f:
-            yaml.safe_dump(CLI_SYSTEMATICS, f)
-        config = {**CLI_CONFIG, "svd-path": ARTIFACT,
-                  "prior": os.path.join(tmp, "bu2019lm.prior"),
-                  "injection": os.path.join(tmp, "injection.json"),
-                  "systematics-file": os.path.join(tmp, "systematics.yaml"),
-                  "outdir": os.path.join(tmp, "outdir")}
-        config_path = os.path.join(tmp, "run.yaml")
-        with open(config_path, "w") as f:
-            yaml.safe_dump(config, f)
-
+        config, config_path = cli_config(tmp)
         t0 = time.time()
         svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
             grb_kernel.LAUNCHES = 0
@@ -1071,7 +1207,8 @@ def cli_path(np, torch):
             k1_expected=f"2+{result.niter}x{walks}", k2_launches=launches[1],
             k3_launches=launches[2],
             skip_sampling_logz=repr(again.result.logz))
-    return launches[0]
+        posterior = analysis.posterior_samples()
+    return launches[0], posterior
 
 
 def kn_models(np, torch, gen):
@@ -1154,6 +1291,564 @@ def kn_models(np, torch, gen):
                 cpu_batch=u_small.shape[0], cpu_finite=int(ok.sum()),
                 max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
                 logl_injection=f"{logl_inj:.3f}")
+
+
+def rows_of(ops, n):
+    """The first n rows of K3's per-row operands (cphi and wphi shared)."""
+    return tuple(o if i in (5, 6) else o[:n].contiguous()
+                 for i, o in enumerate(ops))
+
+
+def grb_ramp_path(np, torch, gen):
+    """Phases 15-16: K3's per-row query mode against its plain version, then
+    TrPi2018 on the energy ramp (its 64 nodes folded into the batch, in
+    chunks of models/grb.py:ramp_chunk_rows rows, one K3 launch each)
+    through the detector and EMAnalysis.batched_logl. Returns the per-row
+    fields of K3's entry in the kernel line."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.models import grb
+    from nmma_tpu_torch.ops import grb_kernel as k3
+    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
+
+    def reset():
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = k3.LAUNCHES = 0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ramp_") as tmp:
+        data_path = os.path.join(tmp, "injection.dat")
+        prior_path = os.path.join(tmp, "ramp.prior")
+        with open(prior_path, "w") as f:
+            f.write(RAMP_PRIOR_TEXT)
+        synthetic_photometry(np, torch, "TrPi2018", GRB_FILTERS, data_path,
+                             RAMP_INJECTION, sample_times=(0.05, 40.0, 64),
+                             epochs=(0.1, 30.0))
+        cfg = EMAnalysisConfig(
+            model="TrPi2018", prior_file=prior_path,
+            light_curve_data=data_path, trigger_time=TRIGGER_MJD, tmin=0.05,
+            tmax=40.0, n_tsteps=64, error_budget=0.5, filters=GRB_FILTERS)
+        analysis = EMAnalysis(cfg, device=DEVICE)
+        t_grid = grb.trpi2018_time_grid(analysis.model.sample_times)
+        n_nodes = t_grid.shape[0]
+        chunk = grb.ramp_chunk_rows()
+
+        def folded(b):
+            """b ramp prior draws folded with the nodes: (params, t_rows,
+            nu_rows) of b x 64 rows."""
+            p = analysis.model.prepare_parameters(analysis.priors.transform(
+                analysis.priors.sample_units(gen, b)))
+            p.setdefault("d_L", 3.086e19)
+            return grb.ramp_rows(p, t_grid,
+                                 analysis.model.nu_0s[None].expand(b, -1))
+
+        def row_operands(rows, s=0, e=None):
+            p, t_rows, nu_rows = rows
+            e = t_rows.shape[0] if e is None else e
+            part = {k: (v[s:e] if isinstance(v, torch.Tensor) and v.dim()
+                        else v) for k, v in p.items()}
+            return grb.grb_stage1(t_rows[s:e], nu_rows[s:e], part)[0]
+
+        # 15. K3 with one query a row against its plain version. Zeros
+        # must sit in the same places, a subnormal counting as zero: on
+        # these operands K3 leaves 1-8 ulps of the smallest subnormal
+        # (<= 1.1e-44, against outputs up to ~1e-16) where the plain
+        # version's other order of operations underflows to 0, and the JAX
+        # reference flushes every subnormal to zero (XLA)
+        tiny = torch.finfo(torch.float32).tiny
+        ops = row_operands(folded(RAMP_POINTS))           # 4,096 rows
+        max_rel = 0.0
+        for n in sorted({1, min(1000, ops[0].shape[0]), ops[0].shape[0]}):
+            sub = rows_of(ops, n)
+            launched = k3.LAUNCHES
+            got = k3.eats_flux(*sub)
+            want = k3.eats_flux_plain(*sub)
+            torch.cuda.synchronize()
+            rel = relative_error(torch, got, want)
+            exact = (got == 0) != (want == 0)
+            residue = float(torch.where(exact, got.abs() + want.abs(),
+                                        0.0).max())
+            if got.shape != (n, sub[0].shape[1], len(GRB_FILTERS), 1) \
+                    or k3.LAUNCHES != launched + 1 or not math.isfinite(rel) \
+                    or rel > K3_TOL or not torch.isfinite(got).all() \
+                    or not torch.equal(got.abs() < tiny, want.abs() < tiny):
+                raise RuntimeError(
+                    f"K3's per-row mode disagrees at {n} rows: max relative "
+                    f"error {rel} (tolerance {K3_TOL}), zeros "
+                    f"{int((got.abs() < tiny).sum())} against "
+                    f"{int((want.abs() < tiny).sum())}")
+            max_rel = max(max_rel, rel)
+            say("k3_rowq", rows=n, shape="x".join(map(str, got.shape)),
+                max_rel_err=f"{rel:.3e}",
+                max_abs_err=f"{float((got - want).abs().max()):.3e}",
+                zeros=f"{int((want == 0).sum())}/{want.numel()}",
+                subnormal_only_mismatches=int(exact.sum()),
+                max_mismatch_value=f"{residue:.3e}")
+        # hand-made rows, each with its own query: on a node, on a plateau
+        # value, at both ends of its row and outside it
+        for n_r in (100, 128, 256):
+            for n_phi in (5, 16):
+                edge = k3.edge_operands(148, 8, n_r, 37, n_phi,
+                                        len(GRB_FILTERS), seed=n_r + n_phi,
+                                        device=DEVICE)
+                lq = edge[4][torch.arange(148, device=DEVICE) % 37]
+                edge = edge[:4] + (lq[:, None].contiguous(),) + edge[5:]
+                got = k3.eats_flux(*edge)
+                want = k3.eats_flux_plain(*edge)
+                torch.cuda.synchronize()
+                rel = relative_error(torch, got, want)
+                zeros = want == 0
+                if not math.isfinite(rel) or rel > K3_TOL \
+                        or not torch.isfinite(got).all() \
+                        or not torch.equal(got == 0, zeros):
+                    raise RuntimeError(
+                        f"K3's per-row mode disagrees on hand-made rows at "
+                        f"R={n_r}, Ph={n_phi}: max relative error {rel}, "
+                        f"zeros {int((got == 0).sum())} against "
+                        f"{int(zeros.sum())}")
+                max_rel = max(max_rel, rel)
+                say("k3_rowq", edges=f"R{n_r}xPh{n_phi}", rows=148,
+                    max_rel_err=f"{rel:.3e}",
+                    zeros=f"{int(zeros.sum())}/{zeros.numel()}")
+        rowq_ms = time_ms(torch, lambda: k3.eats_flux(*ops), rounds=5,
+                          launches=2, warmup=1)
+        rowq_plain_ms = time_ms(torch, lambda: k3.eats_flux_plain(*ops),
+                                rounds=1, launches=1, warmup=1)
+        n_ops, n_bytes, in_range, queries = k3_work(torch, ops)
+        rowq_bound_ms, rowq_bound_by = roofline_ms(n_ops, n_bytes)
+        say("k3_rowq", rows=ops[0].shape[0], kernel_ms=f"{rowq_ms:.4f}",
+            plain_ms=f"{rowq_plain_ms:.4f}",
+            bound_ms=f"{rowq_bound_ms:.4f}", bound_by=rowq_bound_by,
+            gops=f"{n_ops / 1e9:.3f}", mbytes=f"{n_bytes / 1e6:.3f}",
+            queries_in_range=f"{in_range}/{queries}",
+            share_of_bound=f"{rowq_bound_ms / rowq_ms:.4f}")
+        del ops, sub, got, want
+        # the B = 8192 ramp's 524,288 rows, chunk by chunk as the model
+        # runs them: K3's time (CUDA events, one launch a chunk) and bound
+        rows = folded(BATCH)
+        n_rows = rows[1].shape[0]
+        big_ms, big_ops, big_bytes, big_chunks = 0.0, 0.0, 0.0, 0
+        for s in range(0, n_rows, chunk):
+            ops = row_operands(rows, s, min(n_rows, s + chunk))
+            if s == 0:
+                k3.eats_flux(*ops)                        # warm-up
+            big_ms += time_ms(torch, lambda: k3.eats_flux(*ops), rounds=1,
+                              launches=1, warmup=0)
+            work = k3_work(torch, ops)
+            big_ops, big_bytes = big_ops + work[0], big_bytes + work[1]
+            big_chunks += 1
+            del ops
+        big_bound_ms, big_bound_by = roofline_ms(big_ops, big_bytes)
+        say("k3_rowq", rows=n_rows, chunks=big_chunks, chunk_rows=chunk,
+            kernel_ms=f"{big_ms:.4f}", bound_ms=f"{big_bound_ms:.4f}",
+            bound_by=big_bound_by, gops=f"{big_ops / 1e9:.3f}",
+            mbytes=f"{big_bytes / 1e6:.3f}",
+            share_of_bound=f"{big_bound_ms / big_ms:.4f}")
+        del rows
+
+        # 16. the ramp's magnitudes against the plain K3 (B = 64)
+        def calls(n_b):
+            return math.ceil(n_b * n_nodes / chunk)
+
+        u = analysis.priors.sample_units(gen, BATCH)
+        p64 = analysis.priors.transform(u[:64])
+        reset()
+        _, mags = analysis.model(p64)
+        torch.cuda.synchronize()
+        if k3.LAUNCHES != calls(64):
+            raise RuntimeError(f"the ramp at B=64 launched K3 {k3.LAUNCHES} "
+                               f"times, not {calls(64)}")
+        kernel_fn = k3.eats_flux
+        k3.eats_flux = k3.eats_flux_plain
+        try:
+            _, mags_plain = analysis.model(p64)
+            logl_plain = analysis.batched_logl(u[:64])
+        finally:
+            k3.eats_flux = kernel_fn
+        if not torch.equal(torch.isinf(mags), torch.isinf(mags_plain)) \
+                or torch.isnan(mags).any():
+            raise RuntimeError("the ramp's inf magnitudes differ from the "
+                               "plain K3's")
+        fin = torch.isfinite(mags_plain)
+        faint = fin & (mags_plain >= FAINT_MAG)
+        bright = fin & ~faint
+        dmag = float((mags - mags_plain)[bright].abs().max())
+        if not dmag <= RAMP_MAG_TOL or float(bright.float().mean()) < 0.5:
+            raise RuntimeError(f"the ramp's magnitudes are {dmag} mag off "
+                               f"the plain K3's (tolerance {RAMP_MAG_TOL})")
+        reset()
+        logl = analysis.batched_logl(u[:64])
+        torch.cuda.synchronize()
+        if (k3.LAUNCHES, svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES) != \
+                (calls(64), 0, 0):
+            raise RuntimeError(
+                f"the ramp's batched_logl at B=64 launched K3, K1, K2 "
+                f"{k3.LAUNCHES}, {svd_kernel.LAUNCHES}, "
+                f"{me2017_kernel.LAUNCHES} times")
+        usable = logl > -1e29
+        if not torch.equal(usable, logl_plain > -1e29):
+            raise RuntimeError("the ramp's sentinels differ from the plain "
+                               "K3's")
+        dlogl = (logl - logl_plain)[usable].abs()
+        if bool((dlogl > LOGL_ATOL + LOGL_RTOL
+                 * logl_plain[usable].abs()).any()):
+            raise RuntimeError(f"the ramp's logL is {float(dlogl.max())} off "
+                               "the plain K3's")
+        say("grb_ramp", batch=64, max_abs_dmag=f"{dmag:.3e}",
+            compared_mags=int(bright.sum()),
+            fainter_than=f"{FAINT_MAG}:{int(faint.sum())}",
+            max_abs_dlogl_vs_plain=f"{float(dlogl.max()):.3e}",
+            finite_share=f"{float(usable.float().mean()):.4f}")
+
+        # wall and device time, peak memory and evals/s at B = 64 and 8192
+        for b, rounds in ((64, 5), (BATCH, 2)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mb = torch.cuda.memory_allocated() / 2**20
+            ub = u[:b]
+            b = ub.shape[0]
+            reset()
+            logl = analysis.batched_logl(ub)
+            torch.cuda.synchronize()
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            launches = (k3.LAUNCHES, svd_kernel.LAUNCHES,
+                        me2017_kernel.LAUNCHES)
+            if launches != (calls(b), 0, 0):
+                raise RuntimeError(
+                    f"the ramp's batched_logl at B={b} launched K3, K1, K2 "
+                    f"{launches} times, not ({calls(b)}, 0, 0)")
+            usable = logl > -1e29
+            if logl.shape != (b,) or torch.isnan(logl).any() \
+                    or float(usable.float().mean()) < 0.5:
+                raise RuntimeError(f"bad ramp logL at B={b}")
+            wall_ms, n_calls, round_ms = throughput(
+                torch, lambda: analysis.batched_logl(ub), rounds=rounds,
+                round_s=0.4 if b == 64 else 0.0, warmup=1)
+            # one profiled call at B = 8192, the mean of 10 at B = 64
+            n_prof = 1 if b == BATCH else 10
+            busy, n_launch, top, k3_dev, k3_seen = device_profile(
+                torch, lambda: [analysis.batched_logl(ub)
+                                for _ in range(n_prof)], kernel="grb_eats")
+            busy, n_launch, k3_dev = (busy / n_prof, n_launch // n_prof,
+                                      k3_dev / n_prof)
+            k3_seen //= n_prof
+            if b == BATCH:
+                ramp_k3_ms = k3_dev
+            say("grb_ramp", batch=b, rows=b * n_nodes, k3_launches=launches[0],
+                k3_expected=calls(b), calls=n_calls, wall_ms=f"{wall_ms:.4f}",
+                evals_per_s=f"{b / (wall_ms / 1e3):.1f}",
+                evals_per_s_rounds=",".join(
+                    f"{b / (ms / 1e3):.1f}" for ms in round_ms),
+                device_busy_ms=f"{busy:.4f}",
+                idle_share=f"{1.0 - busy / wall_ms:.4f}",
+                kernel_launches=n_launch, k3_device_ms=f"{k3_dev:.4f}",
+                k3_profiled_launches=k3_seen, profiled_calls=n_prof,
+                peak_mem_mib=f"{peak_mb:.1f}",
+                base_mem_mib=f"{base_mb:.1f}",
+                finite_share=f"{float(usable.float().mean()):.4f}", top=top)
+
+    # the ramp's meaning (tests/test_grb.py:281-314), at full resolution:
+    # before t_start the constant-E0(Estart) curve, after the injection the
+    # constant-E0(Eend) curve, between them inside their envelopes
+    base = dict(thetaCore=0.08, thetaWing=0.32, inclination_EM=0.0,
+                log10_n0=-2.0, p=2.3, log10_epsilon_e=-1.0,
+                log10_epsilon_B=-3.0, xi_N=1.0, d_L=3.086e19)
+    a, le, t_start, t_end = 1.2, 52.5, 2.0e4, 2.0e6
+    t = torch.tensor(np.geomspace(0.05, 200.0, 40), dtype=torch.float32,
+                     device=DEVICE)
+    nu = torch.tensor([[5e14]], device=DEVICE)
+
+    def curve(**extra):
+        p = {k: torch.tensor([v], device=DEVICE)
+             for k, v in dict(base, **extra).items()}
+        return grb.trpi2018_mags(p, t, nu)[0, 0].cpu().numpy()
+
+    reset()
+    m_inj = curve(energy_exponential=a, log10_Eend=le, t_start=t_start,
+                  injection_duration=t_end)
+    if k3.LAUNCHES != calls(1):
+        raise RuntimeError(f"one ramp curve launched K3 {k3.LAUNCHES} times")
+    m_lo = curve(log10_E0=le + a * math.log10(t_start / t_end))
+    m_hi = curve(log10_E0=le)
+    t_sec = t.cpu().numpy() * 86400.0
+    pre, post = t_sec < 0.8 * t_start, t_sec > 1.3 * t_end
+    mid = ~(pre | post)
+    d_pre = float(np.abs(m_inj[pre] - m_lo[pre]).max())
+    d_post = float(np.abs(m_inj[post] - m_hi[post]).max())
+    if not (pre.any() and post.any() and d_pre <= 0.05 and d_post <= 0.05
+            and np.all(m_inj[mid] <= m_lo[mid] + 0.05)
+            and np.all(m_inj[mid] >= m_hi[mid] - 0.05)):
+        raise RuntimeError(f"the ramp's curve leaves its envelopes: "
+                           f"{d_pre} before t_start, {d_post} after")
+    say("grb_ramp", semantics="ok", pre_points=int(pre.sum()),
+        post_points=int(post.sum()), max_dmag_pre=f"{d_pre:.3e}",
+        max_dmag_post=f"{d_post:.3e}")
+    return {"rowq_ms_4096": rowq_ms, "rowq_plain_ms_4096": rowq_plain_ms,
+            "rowq_bound_ms_4096": rowq_bound_ms,
+            "rowq_bound_by_4096": rowq_bound_by,
+            "rowq_ms_524288": big_ms, "rowq_bound_ms_524288": big_bound_ms,
+            "rowq_profiled_ms_524288": ramp_k3_ms,
+            "rowq_max_rel_err": max_rel,
+            "launches_ramp_call_8192": calls(BATCH)}
+
+
+def posterior_config3(np, torch):
+    """Phase 17: BASELINE config 3 to convergence at the JAX package's
+    production settings (scripts/torch_parity_config3.py), its posterior
+    against the JAX package's two, JS < 0.01 per parameter, and logZ."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_parity_config3 as parity
+
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_config3_") as tmp:
+        analysis = parity.config3_analysis(tmp, device=DEVICE)
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+            grb_kernel.LAUNCHES = 0
+        result, post, seconds = parity.run(analysis)
+        launches = (grb_kernel.LAUNCHES, svd_kernel.LAUNCHES,
+                    me2017_kernel.LAUNCHES)
+    walks = analysis.config.sampler.walks
+    expected = 1 + result.niter * walks
+    if launches != (expected, 0, 0):
+        raise RuntimeError(f"config 3 launched K3, K1, K2 {launches} times; "
+                           f"expected ({expected}, 0, 0)")
+    summary = parity.compare(post, result.logz, result.logz_err)
+    for ref in parity.REFERENCES:
+        say("posterior_config3", reference=ref, **{
+            k: f"{v:.5f}" for k, v in summary[f"js_{ref}"].items()},
+            js_max=f"{max(summary[f'js_{ref}'].values()):.5f}")
+    say("posterior_config3", iterations=result.niter,
+        likelihood_calls=result.ncall, k3_launches=launches[0],
+        k3_expected=f"1+{result.niter}x{walks}",
+        logz=f"{result.logz:.4f}", logz_err=f"{result.logz_err:.4f}",
+        reference_logz="-59.4958+-0.0843",
+        dlogz=f"{summary['dlogz']:.4f}",
+        dlogz_limit=f"{summary['dlogz_limit']:.4f}",
+        js_max=f"{summary['js_max']:.5f}", js_gate=parity.JS_GATE,
+        samples=summary["n_samples"], seconds=f"{seconds:.2f}")
+    if not summary["ok"]:
+        raise RuntimeError(f"config 3's posterior fails its check: JS max "
+                           f"{summary['js_max']}, dlogZ {summary['dlogz']} "
+                           f"(limit {summary['dlogz_limit']})")
+
+
+def mcmc_path(np, torch, nested):
+    """Phase 18: the [cli] configuration with --sampler mcmc: K1 launches,
+    R-hat, and JS per parameter against the [cli] run's nested posterior
+    ``nested``."""
+    from nmma_tpu_torch.cli import lightcurve_analysis
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    from nmma_tpu_torch.post_processing import posterior_js_divergences
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mcmc_") as tmp:
+        config, config_path = cli_config(tmp)
+        flags = ["--sampler", "mcmc", "--mcmc-walkers", str(MCMC_WALKERS),
+                 "--mcmc-sweeps", str(MCMC_SWEEPS), "--mcmc-temps",
+                 str(MCMC_TEMPS)]
+        t0 = time.time()
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+            grb_kernel.LAUNCHES = 0
+        analysis = lightcurve_analysis.main([config_path, *flags])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
+                    grb_kernel.LAUNCHES)
+        res = analysis.mcmc_result
+        # the injection's light curve, the initial walkers, two half-sweeps
+        expected = 1 + 1 + 2 * MCMC_SWEEPS
+        if launches != (expected, 0, 0):
+            raise RuntimeError(f"the MCMC launched K1, K2, K3 {launches} "
+                               f"times; expected ({expected}, 0, 0)")
+        label = os.path.join(config["outdir"], config["label"])
+        written = [label + s for s in ("_mcmc_result.npz",
+                                       "_mcmc_posterior_samples.csv")]
+        if not all(os.path.exists(p) for p in written):
+            raise RuntimeError("the MCMC wrote no result files")
+        post = analysis.posterior_samples(result=res)
+    names = analysis.priors.sampled_names
+    js = posterior_js_divergences(post, nested, names)
+    max_rhat = float(np.nanmax(res.rhat))
+    say("mcmc", walkers=MCMC_WALKERS, sweeps=MCMC_SWEEPS, temps=MCMC_TEMPS,
+        seconds=f"{seconds:.2f}", acceptance=f"{res.acceptance:.4f}",
+        max_rhat=f"{max_rhat:.4f}", likelihood_calls=res.n_call,
+        k1_launches=launches[0], k1_expected=f"2+2x{MCMC_SWEEPS}",
+        samples=res.samples_u.shape[0],
+        written=",".join(os.path.basename(p) for p in written))
+    say("mcmc", **{f"rhat_{k}": f"{v:.4f}" for k, v in zip(names, res.rhat)})
+    say("mcmc", **{f"js_{k}": f"{v:.5f}" for k, v in js.items()},
+        js_max=f"{max(js.values()):.5f}", js_gate=MCMC_JS_GATE)
+    if not max_rhat <= MCMC_RHAT_GATE:
+        raise RuntimeError(f"MCMC max R-hat {max_rhat} > {MCMC_RHAT_GATE}")
+    if not max(js.values()) < MCMC_JS_GATE:
+        raise RuntimeError(f"MCMC posterior off the nested one: JS {js}")
+
+
+def em_models(np, torch, gen):
+    """Phase 19: Piro2021, Sr2023 and a spectral template through
+    EMAnalysis.batched_logl, Arnett and Arnett_modified through the
+    bolometric likelihood, each at B = BATCH: evals/s, device ms, launches,
+    peak memory, and the card against the CPU at B = 128."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.likelihood import BolometricLikelihood
+    from nmma_tpu_torch.models import (DetectorLightCurveModel,
+                                       spectral_model_from_file)
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    from nmma_tpu_torch.priors import parse_prior_dict
+
+    spectral_model_from_file("sn_template_smoke", SN_TEMPLATE)
+
+    def measure(model, fn_on, fn_cpu, u, injection_logl):
+        """Launches, throughput, profile and the CPU comparison of one
+        model's batched log-likelihood."""
+        fn_on(u[:128])                          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+            grb_kernel.LAUNCHES = 0
+        logl = fn_on(u)
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
+                    grb_kernel.LAUNCHES)
+        if launches != (0, 0, 0):
+            raise RuntimeError(f"{model} launched K1, K2, K3 {launches}")
+        if logl.shape != (BATCH,) or torch.isnan(logl).any():
+            raise RuntimeError(f"bad {model} logL {logl.shape}")
+        usable = logl > -1e29
+        finite_share = float(usable.float().mean())
+        if finite_share < 0.5:
+            raise RuntimeError(f"only {finite_share:.3f} of {model} logL "
+                               "finite")
+        logl_ms, calls, round_ms = throughput(torch, lambda: fn_on(u))
+        busy, n_launch = device_profile(torch, lambda: fn_on(u))[:2]
+        got = fn_on(u[:128]).cpu()
+        want = fn_cpu(u[:128].cpu())
+        if not torch.equal(got > -1e29, want > -1e29):
+            raise RuntimeError(f"{model}: sentinels differ between the card "
+                               "and the CPU")
+        ok = want > -1e29
+        dlogl = (got - want)[ok].abs()
+        if bool((dlogl > LOGL_ATOL + LOGL_RTOL * want[ok].abs()).any()):
+            raise RuntimeError(f"{model}: the card's logL is "
+                               f"{float(dlogl.max())} off the CPU's")
+        if not injection_logl > float(logl[usable].median()):
+            raise RuntimeError(f"{model}: injection logL {injection_logl} "
+                               "below the median")
+        say("em_models", model=model, batch=BATCH,
+            finite_share=f"{finite_share:.4f}", calls=calls,
+            wall_ms=f"{logl_ms:.4f}",
+            evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+            evals_per_s_rounds=",".join(
+                f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
+            device_busy_ms=f"{busy:.4f}", kernel_launches=n_launch,
+            peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+            cpu_batch=128, cpu_finite=int(ok.sum()),
+            max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
+            max_rel_dlogl_vs_cpu=f"{float((dlogl / want[ok].abs().clamp(min=1.0)).max()):.3e}",
+            logl_injection=f"{injection_logl:.3f}")
+
+    for model, (prior_text, injection, grid, filters, epochs) in \
+            EM_MODELS.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_em_") as tmp:
+            data_path = os.path.join(tmp, "injection.dat")
+            prior_path = os.path.join(tmp, "model.prior")
+            with open(prior_path, "w") as f:
+                f.write(prior_text)
+            synthetic_photometry(np, torch, model, filters, data_path,
+                                 injection, sample_times=grid[:3],
+                                 epochs=epochs)
+            cfg = EMAnalysisConfig(
+                model=model, prior_file=prior_path,
+                light_curve_data=data_path, trigger_time=TRIGGER_MJD,
+                tmin=grid[0], tmax=grid[1], n_tsteps=grid[2],
+                timescale=grid[3], filters=filters,
+                outdir=os.path.join(tmp, "outdir"))
+            analysis = EMAnalysis(cfg, device=DEVICE)
+            on_cpu = EMAnalysis(cfg, device="cpu")
+            u = analysis.priors.sample_units(gen, BATCH)
+            measure(model, analysis.batched_logl, on_cpu.batched_logl, u,
+                    float(analysis.batched_logl(injection_units(
+                        analysis.priors, injection))[0]))
+
+    for model, prior_text, injection in (
+            ("Arnett", ARNETT_PRIOR_TEXT, ARNETT_INJECTION),
+            ("Arnett_modified", ARNETT_PRIOR_TEXT
+             + "t_0 = Uniform(minimum=5., maximum=50.)\n",
+             {**ARNETT_INJECTION, "t_0": 20.0})):
+        phase, lbol, lbol_err = arnett_lbol(np, torch, model, injection)
+        priors = parse_prior_dict(prior_text)
+        funcs = []
+        for device in (DEVICE, "cpu"):
+            like = BolometricLikelihood(DetectorLightCurveModel(
+                model, [], device=device), phase, lbol, lbol_err)
+            funcs.append(lambda v, like=like: like(priors.transform(v)))
+        u = priors.sample_units(gen, BATCH)
+        measure(model, *funcs, u, float(funcs[0](
+            injection_units(priors, injection))[0]))
+
+
+def arnett_lbol(np, torch, model, injection):
+    """Bolometric photometry of an Arnett model at ``injection``: 12 epochs
+    in 1-19 d with 5% seeded noise, the last epoch an upper limit
+    (erg/s)."""
+    from nmma_tpu_torch.models import DetectorLightCurveModel
+
+    det = DetectorLightCurveModel(model, [], device=DEVICE)
+    t, lbol40 = det({k: torch.tensor([v], device=DEVICE)
+                     for k, v in injection.items()})
+    rng = np.random.default_rng(11)
+    phase = np.linspace(1.0, 19.0, 12)
+    true = np.interp(phase, t[0].cpu().numpy(),
+                     lbol40[0].cpu().numpy()) * 1e40
+    err = 0.05 * true
+    obs = true + rng.normal(0.0, err)
+    err[-1] = np.inf
+    return phase, obs, err
+
+
+def lbol_path(np, torch):
+    """Phase 20: lightcurve-analysis-lbol (lbol_main) on an Arnett csv from
+    an injection, nested sampling to convergence: finite logZ and the
+    injection inside the 90% interval of each sampled parameter."""
+    from nmma_tpu_torch.cli.lightcurve_analysis import lbol_main
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+
+    phase, lbol, lbol_err = arnett_lbol(np, torch, "Arnett",
+                                        ARNETT_INJECTION)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lbol_") as tmp:
+        csv = os.path.join(tmp, "lbol.csv")
+        np.savetxt(csv, np.column_stack([phase, lbol, lbol_err]),
+                   delimiter=",", header="phase,Lbb,Lbb_unc", comments="")
+        prior = os.path.join(tmp, "arnett.prior")
+        with open(prior, "w") as f:
+            f.write(ARNETT_PRIOR_TEXT)
+        t0 = time.time()
+        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
+            grb_kernel.LAUNCHES = 0
+        result = lbol_main(["--model", "Arnett", "--prior", prior,
+                            "--light-curve-data", csv, "--nlive", "256",
+                            "--dlogz", "0.1", "--outdir", tmp,
+                            "--label", "lbol"])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
+                    grb_kernel.LAUNCHES)
+        post = np.load(os.path.join(tmp, "lbol_result.npz"))
+        intervals = {k: np.quantile(post[f"posterior_{k}"], [0.05, 0.95])
+                     for k in ("tau_m", "log10_mni")}
+    if not math.isfinite(result.logz) or launches != (0, 0, 0):
+        raise RuntimeError(f"lbol_main: logZ {result.logz}, K1/K2/K3 "
+                           f"launches {launches}")
+    outside = {k: (float(lo), float(hi)) for k, (lo, hi) in intervals.items()
+               if not lo <= ARNETT_INJECTION[k] <= hi}
+    say("lbol", logz=f"{result.logz:.4f}", logz_err=f"{result.logz_err:.4f}",
+        iterations=result.niter, likelihood_calls=result.ncall,
+        seconds=f"{seconds:.2f}", **{
+            f"{k}_90": f"{lo:.4f}..{hi:.4f}"
+            for k, (lo, hi) in intervals.items()},
+        injection=",".join(f"{k}={v}" for k, v in ARNETT_INJECTION.items()))
+    if outside:
+        raise RuntimeError(f"the injection lies outside the 90% intervals "
+                           f"{outside}")
 
 
 def main() -> int:
@@ -1349,8 +2044,13 @@ def main() -> int:
     k2_entry = me2017_path(np, torch, gen, sample_times)
     k3_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
-    cli_launches = cli_path(np, torch)
+    cli_launches, cli_posterior = cli_path(np, torch)
     kn_models(np, torch, gen)
+    k3_entry.update(grb_ramp_path(np, torch, gen))
+    posterior_config3(np, torch)
+    mcmc_path(np, torch, cli_posterior)
+    em_models(np, torch, gen)
+    lbol_path(np, torch)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",

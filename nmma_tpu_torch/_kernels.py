@@ -36,8 +36,8 @@ KERNELS = {
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
     "grb_eats": ("grb_eats.cu", {
-        "nmma_grb_eats": (_I, [_P] * 9 + [_I] * 7 + [_P]),
-        "nmma_grb_eats_supported": (_I, [ctypes.c_longlong] + [_I] * 5),
+        "nmma_grb_eats": (_I, [_P] * 9 + [_I] * 8 + [_P]),
+        "nmma_grb_eats_supported": (_I, [ctypes.c_longlong] + [_I] * 6),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
 }

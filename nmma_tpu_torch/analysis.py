@@ -4,7 +4,8 @@ PyTorch counterpart of ``nmma_tpu/analysis.py`` (the reference's
 ``analysis_setup``, nmma/em/analysis.py:110-173, and ``bilby_sampling``,
 nmma/core/base.py:290-369): a batched unit-cube log-likelihood
 (prior transform -> light-curve model -> photometric likelihood ->
-constraints) on one device, driven by the batched nested sampler.
+constraints) on one device, driven by the batched nested sampler or the
+ensemble MCMC.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from . import __version__, resolve_device
-from .inference import NestedSampler, NestedSamplerConfig
+from .inference import (EnsembleMCMC, EnsembleMCMCConfig, NestedSampler,
+                        NestedSamplerConfig)
 from .io import (cut_data_to_time_range, load_em_observations,
                  remove_nondetections, save_posterior_csv,
                  shift_to_trigger_time)
@@ -148,6 +150,36 @@ class EMAnalysis:
             verbose=verbose, checkpoint_path=ckpt, resume=checkpoint)
         self.save_result()
         return self.result
+
+    def run_mcmc(self, mcmc_config=None, verbose=True):
+        """The posterior from the affine-invariant ensemble MCMC, an
+        independent check of the nested sampler (no evidence unless the
+        config asks for a ladder with ``evidence``). Writes
+        ``{label}_mcmc_result.npz`` and ``{label}_mcmc_posterior_samples.csv``
+        with the JAX package's keys, keeps the EnsembleMCMCResult as
+        ``mcmc_result`` and returns the posterior dict."""
+        cfg = self.config
+        os.makedirs(cfg.outdir, exist_ok=True)
+        mcfg = mcmc_config or EnsembleMCMCConfig(seed=cfg.sampler.seed)
+        sampler = EnsembleMCMC(self.batched_logl, self.priors.ndim, mcfg,
+                               device=self.device)
+        res = sampler.run(verbose=verbose)
+        self.mcmc_result = res
+        max_rhat = float(np.nanmax(res.rhat))
+        if max_rhat > 1.1:
+            print(f"WARNING: ensemble-mcmc max R-hat {max_rhat:.3f} > 1.1 "
+                  f"— chains not converged; increase sweeps (e.g. "
+                  f"--mcmc-sweeps {2 * mcfg.sweeps}) or use the nested "
+                  f"sampler", flush=True)
+        post = self.posterior_samples(result=res)
+        np.savez(os.path.join(cfg.outdir, f"{cfg.label}_mcmc_result.npz"),
+                 acceptance=res.acceptance, rhat=res.rhat,
+                 ncall=res.n_call, logz=res.logz, logz_err=res.logz_err,
+                 **{f"posterior_{k}": v for k, v in post.items()})
+        save_posterior_csv(
+            os.path.join(cfg.outdir,
+                         f"{cfg.label}_mcmc_posterior_samples.csv"), post)
+        return post
 
     # -- posterior ----------------------------------------------------------
     def _transform_host(self, u):

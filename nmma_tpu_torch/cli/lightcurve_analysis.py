@@ -1,10 +1,11 @@
 """``lightcurve-analysis`` — EM-only parameter estimation from the command
 line, on the CUDA card.
 
-Port of the nested-sampling path of ``nmma_tpu/cli/lightcurve_analysis.py``
-(the reference's ``nmma.em.analysis:main``): config-file-first parsing,
+Port of ``nmma_tpu/cli/lightcurve_analysis.py`` (the reference's
+``nmma.em.analysis:main`` and ``lbol_main``): config-file-first parsing,
 data or injection, prior shaping, model and likelihood assembly, nested
-sampling with checkpoint and resume, result files. Run it as
+sampling with checkpoint and resume or the ensemble MCMC
+(``--sampler mcmc``), result files; and the bolometric path. Run it as
 
     python -m nmma_tpu_torch.cli.lightcurve_analysis config.yaml [flags]
 
@@ -47,18 +48,59 @@ def main(cli_args=None, device=None):
     return _single_run(args, device)
 
 
-def lbol_main(cli_args=None):
-    """``lightcurve-analysis-lbol``, the bolometric path."""
-    raise _not_ported("the bolometric analysis (lbol_main)", 14)
+def lbol_main(cli_args=None, device=None):
+    """``lightcurve-analysis-lbol``: nested sampling of a bolometric model
+    (Arnett by default) on a csv of ``phase,Lbb,Lbb_unc`` columns
+    (nmma_tpu/cli/lightcurve_analysis.py:281-324, the reference's
+    ``lbol_main`` and ``bolometric_setup``, em/analysis.py:72-108). The
+    csv is read with numpy. Writes ``{label}_result.npz``; returns the
+    sampler's result."""
+    import numpy as np
+    import torch
+
+    from ..inference import NestedSampler
+    from ..likelihood import BolometricLikelihood
+    from ..models import DetectorLightCurveModel
+    from ..priors import load_prior_file
+
+    config, argv = check_for_config(cli_args)
+    parser = base_analysis_parser("Bolometric light-curve PE")
+    args = apply_config(parser, config, argv)
+    device = resolve_device(device if device is not None else args.device)
+
+    table = np.genfromtxt(args.light_curve_data, delimiter=",", names=True)
+    order = np.argsort(table["phase"])
+    times = table["phase"][order] - (args.trigger_time or 0.0)
+    model = DetectorLightCurveModel(args.model or "Arnett", [],
+                                    device=device)
+    likelihood = BolometricLikelihood(model, times, table["Lbb"][order],
+                                      table["Lbb_unc"][order])
+    priors = load_prior_file(args.prior)
+
+    @torch.no_grad()
+    def unit_logl(u):
+        return likelihood(priors.transform(u))
+
+    sampler = NestedSampler(unit_logl, priors.ndim,
+                            sampler_config_from_args(args), device=device)
+    os.makedirs(args.outdir, exist_ok=True)
+    result = sampler.run(verbose=args.verbose)
+    print(f"log-evidence: {result.logz:.3f} +/- {result.logz_err:.3f}")
+    idx = result.posterior_indices()
+    with torch.no_grad():
+        post = priors.transform(torch.as_tensor(
+            result.samples_u[idx], dtype=torch.float32, device=device))
+    np.savez(os.path.join(args.outdir, f"{args.label}_result.npz"),
+             logz=result.logz, logz_err=result.logz_err,
+             **{f"posterior_{k}": v.cpu().numpy() for k, v in post.items()})
+    return result
 
 
 def _check_supported(args):
     """Raise for the options whose modules the port does not have yet."""
-    if args.sampler == "mcmc":
-        raise _not_ported("--sampler mcmc (inference/mcmc.py)", 13)
     if args.sampler == "neuralnet":
         raise _not_ported("--sampler neuralnet (mlmodel/)", 18)
-    if args.sampler != "nmma-ns":
+    if args.sampler not in ("nmma-ns", "mcmc"):
         raise ValueError(f"unknown sampler {args.sampler!r}")
     if args.fits_file:
         raise _not_ported("--fits-file (io/fits.py)", 17)
@@ -139,6 +181,8 @@ def _single_run(args, device):
                           device=device)
     write_complete_config(args)
 
+    if args.sampler == "mcmc":
+        return _mcmc_run(args, analysis)
     if args.skip_sampling:
         # with a checkpoint, regenerate the result files from it without
         # sampling (reference --skip-sampling, nmma/core/base.py:307-314)
@@ -157,6 +201,29 @@ def _single_run(args, device):
     result = analysis.run(verbose=True)
     print(f"log-evidence: {result.logz:.3f} +/- {result.logz_err:.3f} "
           f"({result.ncall} likelihood calls)")
+    return analysis
+
+
+def _mcmc_run(args, analysis):
+    """``--sampler mcmc``: the ensemble MCMC with --mcmc-walkers, -sweeps and
+    -temps (nmma_tpu/cli/lightcurve_analysis.py:211-240). It keeps no
+    checkpoint, so --skip-sampling stops after the set-up."""
+    import numpy as np
+
+    from ..inference import EnsembleMCMCConfig
+    if args.skip_sampling:
+        print("--skip-sampling: likelihood assembled; exiting before MCMC "
+              "(the ensemble sampler keeps no resume checkpoint to "
+              "regenerate from).")
+        return analysis
+    mcfg = EnsembleMCMCConfig(walkers=args.mcmc_walkers,
+                              sweeps=args.mcmc_sweeps,
+                              temps=args.mcmc_temps, seed=args.seed)
+    post = analysis.run_mcmc(mcmc_config=mcfg, verbose=args.verbose)
+    cfg = analysis.config
+    print(f"mcmc posterior: {len(next(iter(post.values())))} samples "
+          f"written to {cfg.outdir}/{cfg.label}_mcmc_result.npz (max R-hat "
+          f"{float(np.nanmax(analysis.mcmc_result.rhat)):.3f})")
     return analysis
 
 

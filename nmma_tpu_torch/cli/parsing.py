@@ -217,8 +217,8 @@ def base_analysis_parser(description=""):
     p.add_argument("--generation-seed", type=int, default=42)
     # sampler flags (reference defaults: nlive=2048, dlogz=0.1)
     p.add_argument("--sampler", type=str, default="nmma-ns",
-                   help="nmma-ns (vectorized nested sampling); mcmc and "
-                        "neuralnet are not in the port yet")
+                   help="nmma-ns (vectorized nested sampling) or mcmc "
+                        "(ensemble MCMC); neuralnet is not in the port yet")
     p.add_argument("--mcmc-walkers", type=int, default=256)
     p.add_argument("--mcmc-sweeps", type=int, default=1500)
     p.add_argument("--mcmc-temps", type=int, default=1,

@@ -62,6 +62,13 @@
 // replaces (18 operations per (point, ring, phi, t, r)) took 36.9-37.2 ms at
 // B=8192 on an NVIDIA H100 80GB HBM3 at a 700 W power limit; this kernel takes
 // 11.7 ms on the same card and limit (chip_smoke.py, PERF.md).
+//
+// Per-row queries (q_stride = 1, T = 1): the TrPi2018 energy ramp gives every
+// observer-time node its own blast-wave energy, so its nodes are folded into
+// the batch and each (live point, node) row asks for the flux at its own time
+// log_q[b]. The block is the same; one thread per phi row has a query, the
+// others only help build the map. The shared mode (q_stride = 0, log_q [T])
+// computes what it did before.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -108,7 +115,7 @@ grb_eats_kernel(const float* __restrict__ t_delay,
                 const float* __restrict__ wphi,
                 const float* __restrict__ nu_obs,
                 float* __restrict__ out,
-                int Th, int R, int T, int Ph, int F) {
+                int Th, int R, int T, int Ph, int F, int q_stride) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int RS = R + 1;                                   // padded row stride
@@ -126,6 +133,7 @@ grb_eats_kernel(const float* __restrict__ t_delay,
   const float* sc = scal + static_cast<size_t>(b) * 8;
   const float z = sc[0], sin_tv = sc[2], p = sc[3], theta_v = sc[4];
   const float opz = 1.f + z;
+  const float* lq_row = log_q + static_cast<size_t>(b) * q_stride;
 
   // 1. the ring's tracks, and the geometry of its arrival-time map:
   //    {2 sin^2((tv - th)/2), sin tv sin th, t_delay, radius} per radius
@@ -201,7 +209,7 @@ grb_eats_kernel(const float* __restrict__ t_delay,
     if (t >= T) { t -= T; ++ph; if (ph >= Ph) break; }
     const float* row = lt + ph * RS;
     float* pp = part + ph * F * T + t;
-    const float lq = log_q[t];
+    const float lq = lq_row[t];
     if (!(lq >= row[0] && lq <= row[R - 1])) {           // em = 0: no flux
       for (int f = 0; f < F; ++f) pp[f * T] = 0.f;
       continue;
@@ -293,10 +301,12 @@ grb_eats_kernel(const float* __restrict__ t_delay,
 
 // 1 if the kernel is built for these shapes: 2 <= R <= 256, T <= 64,
 // F <= 8, Ph <= 64, B * Th blocks in a 1-D grid and at most 227 KB of
-// shared memory per block; else 0. The wrapper asks before a launch.
+// shared memory per block, with log_q shared (q_stride 0) or one query a row
+// (q_stride 1 and T = 1); else 0. The wrapper asks before a launch.
 extern "C" int nmma_grb_eats_supported(long long B, int Th, int R, int T,
-                                       int Ph, int F) {
+                                       int Ph, int F, int q_stride) {
   return B >= 0 && Th >= 1 && R >= 2 && R <= MAX_R && T >= 1 &&
+         (q_stride == 0 || (q_stride == 1 && T == 1)) &&
          T <= MAX_T && F >= 1 && F <= MAX_F && Ph >= 1 && Ph <= MAX_PHI &&
          B * Th <= 0x7fffffffLL &&
          sizeof(float) * smem_floats(R, T, Ph, F) <=
@@ -306,8 +316,9 @@ extern "C" int nmma_grb_eats_supported(long long B, int Th, int R, int T,
 // Plain C entry point for ctypes. Device pointers to contiguous f32 arrays:
 // t_delay [B, Th, R] (s), log_tracks [B, 5, Th, R], r_grid [B, R] (cm),
 // scal [B, 8] (z, cos theta_v, sin theta_v, p, theta_v, 0, 0, 0),
-// log_q [T] (ln s), cphi and wphi [Ph], nu_obs [B, F] (Hz), out [B, Th, F, T],
-// all on CUDA device `device`; the launch goes to `stream`. Shapes that
+// log_q [T] (ln s; q_stride 0) or [B] (one query a row; q_stride 1, T = 1),
+// cphi and wphi [Ph], nu_obs [B, F] (Hz), out [B, Th, F, T], all on CUDA
+// device `device`; the launch goes to `stream`. Shapes that
 // nmma_grb_eats_supported refuses return cudaErrorInvalidValue. Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int nmma_grb_eats(const void* t_delay, const void* tracks,
@@ -315,8 +326,8 @@ extern "C" int nmma_grb_eats(const void* t_delay, const void* tracks,
                              const void* log_q, const void* cphi,
                              const void* wphi, const void* nu_obs, void* out,
                              int B, int Th, int R, int T, int Ph, int F,
-                             int device, void* stream) {
-  if (!nmma_grb_eats_supported(B, Th, R, T, Ph, F))
+                             int q_stride, int device, void* stream) {
+  if (!nmma_grb_eats_supported(B, Th, R, T, Ph, F, q_stride))
     return cudaErrorInvalidValue;
   if (B == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
@@ -333,7 +344,7 @@ extern "C" int nmma_grb_eats(const void* t_delay, const void* tracks,
       static_cast<const float*>(r_grid), static_cast<const float*>(scal),
       static_cast<const float*>(log_q), static_cast<const float*>(cphi),
       static_cast<const float*>(wphi), static_cast<const float*>(nu_obs),
-      static_cast<float*>(out), Th, R, T, Ph, F);
+      static_cast<float*>(out), Th, R, T, Ph, F, q_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,6 @@
+from .bolometric import BolometricLikelihood
 from .em import EMLikelihood, PhotometryData
 from .systematics import SystematicsModel
 
-__all__ = ["EMLikelihood", "PhotometryData", "SystematicsModel"]
+__all__ = ["BolometricLikelihood", "EMLikelihood", "PhotometryData",
+           "SystematicsModel"]

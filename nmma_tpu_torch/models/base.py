@@ -88,6 +88,12 @@ class SourceModel:
     # and get gathered/inf-filled to the requested set (reference
     # calc_svd_lc null-output, :166-168).
     filter_names: tuple = None
+    # bolometric: mags_fn returns L / 1e40 erg/s [B, T], not magnitudes
+    bolometric: bool = False
+    # SALT-style models sample an apparent amplitude (x0 already holds the
+    # distance), so no distance modulus is added (reference
+    # SupernovaLightCurveModel.gen_detector_lc, nmma/em/model.py:1216-1222)
+    apparent_amplitude: bool = False
 
     def time_grid(self):
         if self.default_time_grid is not None:
@@ -201,7 +207,8 @@ class DetectorLightCurveModel:
         return p
 
     def __call__(self, parameters):
-        """params {name: [B]} -> (observable_times [B, T], mags [B, F, T])."""
+        """params {name: [B]} -> (observable_times [B, T], mags [B, F, T]);
+        a bolometric model gives L / 1e40 erg/s [B, T] in place of mags."""
         t = self.sample_times
         p = self.prepare_parameters(parameters)
         z = p["redshift"]
@@ -222,6 +229,9 @@ class DetectorLightCurveModel:
 
         observable_times = t[None, :] * (1.0 + z)[:, None] \
             + p["timeshift"][:, None]
+        if self.source.bolometric:
+            # energy and time-bin correction (nmma/em/model.py:526-529)
+            return observable_times, mags / ((1.0 + z) ** 2)[:, None]
 
         if self.extinction_law == "G23_MW":
             ext_mag = band_extinction_mags_mw(
@@ -230,8 +240,9 @@ class DetectorLightCurveModel:
             ext_mag = band_extinction_mags_p92_smc(
                 self.nu_nodes, self.nu_weights, p["Ebv"], z)
         redshift_correction = -2.5 * torch.log10(1.0 + z)
-        apparent = (mags + ext_mag[:, :, None]
-                    + p["distance_modulus"][:, None, None]
+        dist_corr = (0.0 if self.source.apparent_amplitude
+                     else p["distance_modulus"][:, None, None])
+        apparent = (mags + ext_mag[:, :, None] + dist_corr
                     + redshift_correction[:, None, None])
 
         # rows with <2 finite samples are unusable -> all-inf

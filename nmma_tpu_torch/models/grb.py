@@ -99,13 +99,15 @@ def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
                trumpet=None):
     """Blast-wave dynamics of every ring, up to K3's operands.
 
-    ``t_obs_day`` [T] observer times (days), ``nu_obs`` [B, F] or [F]
+    ``t_obs_day`` [T] observer times (days) shared by the batch, or
+    [B, 1], one time a row (the energy ramp's folded nodes; a row's radius
+    grid then reaches past its own time), ``nu_obs`` [B, F] or [F]
     observer-frame frequencies (Hz), ``params`` {name: [B] tensor or
     float} in afterglowpy naming (grb.py:102-106). Returns
     ``(operands, d_cos [B, Th], inv_dl26 [B])`` with operands = (t_delay
     [B, Th, R'], log_tracks [B, 5, Th, R'], r_grid [B, R'], scal [B, 8],
-    log_q [T], cphi [Ph], wphi [Ph], nu_obs [B, F]) on the stage-2 subgrid
-    (every second radius when n_r >= 256), the arguments of
+    log_q [T] or [B, 1], cphi [Ph], wphi [Ph], nu_obs [B, F]) on the
+    stage-2 subgrid (every second radius when n_r >= 256), the arguments of
     :func:`grb_kernel.eats_flux`.
     """
     f32 = torch.float32
@@ -151,7 +153,8 @@ def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
     # EATS reach at the last observer time (grb.py:166-186)
     e_ref = e_iso50.amax(dim=1)
     r_dec = 1e17 * torch.pow(e_ref * _RDEC_COEF / n0, 1.0 / 3.0)
-    t_max_obs = t_obs_day.max() * seconds_a_day
+    t_max_obs = (t_obs_day.max() if t_obs_day.dim() == 1
+                 else t_obs_day[:, 0]) * seconds_a_day
     r17_rel = torch.pow(16.0 * e_ref * c_cgs * t_max_obs
                         / (_MSW_COEF * n0 * 1e17), 0.25)
     r_max = 4.0 * torch.maximum(c_cgs * t_max_obs, r17_rel * 1e17)
@@ -322,6 +325,74 @@ def grb_afterglow_flux_density(t_obs_day, nu_obs, params,
             * (inv_dl26 * inv_dl26)[:, None, None])
 
 
+# device memory that one chunk of the energy ramp's folded rows may take in
+# stage 1, in bytes, and the f32 [n_theta, n_r] tensors that stage 1 holds
+# per row at its peak (11,708.6 MiB for 8192 rows at 48 x 256, PERF.md §5:
+# about 30 of them)
+RAMP_CHUNK_BYTES = 8 << 30
+_STAGE1_ROW_TENSORS = 30
+
+
+def ramp_chunk_rows(n_theta=N_THETA, n_r=N_R):
+    """Folded (live point, node) rows that one ramp chunk takes: 5,825 at
+    full resolution, so the sampler's B = 64 (4,096 rows) is one chunk."""
+    return max(1, RAMP_CHUNK_BYTES // (_STAGE1_ROW_TENSORS * 4 * n_theta
+                                       * n_r))
+
+
+def _ramp_log10_e0(p, t_grid):
+    """log10 E0 [B, Tg] of each live point at each node: the ramp
+    ``log10_Eend + energy_exponential log10(t / injection_duration)``,
+    held at its t_start value before t_start and at log10_Eend after
+    injection_duration, times in seconds (nmma_tpu/models/grb.py:733-741)."""
+    a, le, ts, te = (torch.as_tensor(p[k], dtype=torch.float32,
+                                     device=t_grid.device).reshape(-1, 1)
+                     for k in _E0_RAMP_KEYS)
+    t_sec = (t_grid * seconds_a_day)[None, :]
+    l_start = le + a * torch.log10(ts / te)
+    ramp = le + a * torch.log10(t_sec / te)
+    return torch.where(t_sec <= ts, l_start,
+                       torch.where(t_sec >= te, le, ramp))
+
+
+def ramp_rows(p, t_grid, nu_obs):
+    """The energy ramp's B live points x Tg nodes folded into B Tg rows:
+    (params {name: [rows] or float}, t_rows [rows, 1] days, nu_rows
+    [rows, F]). Row b Tg + i carries live point b's parameters with
+    log10_E0 from the ramp at node i, and the time t_grid[i]."""
+    n_b, n_t = nu_obs.shape[0], t_grid.shape[0]
+    folded = {k: (v.expand(n_b).repeat_interleave(n_t)
+                  if isinstance(v, torch.Tensor) and v.dim() > 0 else v)
+              for k, v in p.items() if k not in _E0_RAMP_KEYS}
+    folded["log10_E0"] = _ramp_log10_e0(p, t_grid).expand(
+        n_b, n_t).reshape(-1)
+    return folded, t_grid.repeat(n_b)[:, None], \
+        nu_obs.repeat_interleave(n_t, dim=0)
+
+
+def _e0_ramp_flux(t_grid, nu_obs, p, n_theta=N_THETA, n_r=N_R, **kw):
+    """Flux density [B, F, Tg] under the quasi-static energy ramp
+    (``_e0_ramp_flux``, nmma_tpu/models/grb.py:715-749; the reference's
+    ``flux_density_on_E0_array``): every node has its own blast-wave
+    energy, so it needs its own dynamics. The Tg nodes are folded into the
+    batch (:func:`ramp_rows`), and each row asks for the flux at its own
+    time alone (stage 1's per-row time, K3's per-row query). The B Tg rows
+    run in chunks of :func:`ramp_chunk_rows`, one K3 launch each."""
+    n_b, n_t = nu_obs.shape[0], t_grid.shape[0]
+    rows = n_b * n_t
+    folded, t_rows, nu_rows = ramp_rows(p, t_grid, nu_obs)
+    chunk = ramp_chunk_rows(n_theta, n_r)
+    flux = []
+    for s in range(0, rows, chunk):
+        e = min(rows, s + chunk)
+        part = {k: (v[s:e] if isinstance(v, torch.Tensor) and v.dim() > 0
+                    else v) for k, v in folded.items()}
+        flux.append(grb_afterglow_flux_density(
+            t_rows[s:e], nu_rows[s:e], part, n_theta=n_theta, n_r=n_r,
+            **kw)[..., 0])                                      # [n, F]
+    return torch.cat(flux).reshape(n_b, n_t, -1).transpose(1, 2)
+
+
 def trpi2018_time_grid(t_days):
     """The 64 geometric nodes from max(1e-5, min t) to max t + 1 d on which
     :func:`trpi2018_mags` evaluates the flux (grb.py:795-799)."""
@@ -346,10 +417,6 @@ def trpi2018_mags(params, t_days, nu_host, jet_type=JET_GAUSSIAN,
     if "dL" in p and "d_L" not in p:
         p["d_L"] = p["dL"]
     p.setdefault("d_L", 3.086e19)    # 10 pc in cm (reference default)
-    if all(k in p for k in _E0_RAMP_KEYS):
-        raise NotImplementedError(
-            "the TrPi2018 energy ramp (nmma_tpu/models/grb.py:719) is not in "
-            "nmma_tpu_torch yet; see ROADMAP.md")
     theta_core = p["thetaCore"]
     if "alphaWing" in p:
         p["thetaWing"] = p["alphaWing"] * theta_core
@@ -369,9 +436,13 @@ def trpi2018_mags(params, t_days, nu_host, jet_type=JET_GAUSSIAN,
                         else 1.0 + z)
 
     t_grid = trpi2018_time_grid(t_days)
-    mjys = grb_afterglow_flux_density(
-        t_grid, nu_obs, p, jet_type=jet_type, n_theta=n_theta, n_phi=n_phi,
-        n_r=n_r, spread=spread, trumpet=trumpet)               # [B, F, 64]
+    kern_kw = dict(jet_type=jet_type, n_theta=n_theta, n_phi=n_phi, n_r=n_r,
+                   spread=spread, trumpet=trumpet)
+    if all(k in p for k in _E0_RAMP_KEYS):      # selection as grb.py:803
+        mjys = _e0_ramp_flux(t_grid, nu_obs, p, **kern_kw)      # [B, F, 64]
+    else:
+        mjys = grb_afterglow_flux_density(t_grid, nu_obs, p,
+                                          **kern_kw)            # [B, F, 64]
     mags_grid = flux_to_ab_mag(mjys, unit="mJy")
     mags = masked_interp_sorted_fill(torch.log(t_days), torch.log(t_grid),
                                      mags_grid, math.inf)

@@ -21,6 +21,9 @@ search of the monotone log-time row the two nodes whose hats can be nonzero
 (``log_time_rows`` and ``hat_basis`` below are the map and the dense hat;
 the tests hold the two-node sums to the dense ones).
 
+``log_q`` is either shared by the batch, [T], or one query a row, [B, 1]
+(the TrPi2018 energy ramp, whose observer-time nodes are rows of their own).
+
 CUDA tensors go to the kernel and CPU tensors to the plain version; there is
 no fallback from one to the other.
 """
@@ -87,15 +90,21 @@ def log_time_rows(t_delay, tracks, r_grid, scal, cphi):
     return torch.clamp(torch.cummax(log_t, dim=-1).values, max=60.0)
 
 
+def _queries(log_q):
+    """log_q [T] (shared) or [N, T] (per row) as [N or 1, 1, T]."""
+    return log_q[None, None, :] if log_q.dim() == 1 else log_q[:, None, :]
+
+
 def hat_basis(log_t, log_q):
     """The dense hat of every query on every node: log_t [N, Ph, R],
-    log_q [T] -> [N, Ph, T, R]. Neighbours are clamped at the row's ends
-    and widths at 1e-12, so a node takes no weight from a flat side."""
+    log_q [T] or [N, T] -> [N, Ph, T, R]. Neighbours are clamped at the
+    row's ends and widths at 1e-12, so a node takes no weight from a flat
+    side."""
     x_l = torch.cat([log_t[..., :1], log_t[..., :-1]], dim=-1)
     x_r = torch.cat([log_t[..., 1:], log_t[..., -1:]], dim=-1)
     dl = torch.clamp(log_t - x_l, min=1e-12)[:, :, None, :]
     dr = torch.clamp(x_r - log_t, min=1e-12)[:, :, None, :]
-    lq = log_q[None, None, :, None]                         # [1, 1, T, 1]
+    lq = _queries(log_q)[..., None]                         # [., 1, T, 1]
     up = (lq - x_l[:, :, None, :]) / dl                     # [N, Ph, T, R]
     dn = (x_r[:, :, None, :] - lq) / dr
     return torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
@@ -104,9 +113,9 @@ def hat_basis(log_t, log_q):
 def _eats_rows(t_delay, tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     """The EATS stage for N independent (live point, ring) rows:
     t_delay [N, R], tracks [N, 5, R], r_grid [N, R], scal [N, 8],
-    nu_obs [N, F] -> phi-summed flux [N, F, T]."""
+    log_q [T] or [N, T], nu_obs [N, F] -> phi-summed flux [N, F, T]."""
     n, n_r = t_delay.shape
-    n_t, n_phi = log_q.shape[0], cphi.shape[0]
+    n_t, n_phi = log_q.shape[-1], cphi.shape[0]
     col = scal[:, :, None, None]                            # [N, 8, 1, 1]
     z, sin_tv, p, theta_v = col[:, 0], col[:, 2], col[:, 3], col[:, 4]
     one_p_z = 1.0 + z                                       # [N, 1, 1]
@@ -122,7 +131,8 @@ def _eats_rows(t_delay, tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     denom = torch.clamp(raw[..., N_TRACKS], min=1.0)
     vals = torch.exp(raw[..., :N_TRACKS] / denom[..., None])
     g, num, nuc, em50, th_t = vals.unbind(-1)               # [N, Ph, T] each
-    in_range = (log_q >= log_t[..., :1]) & (log_q <= log_t[..., -1:])
+    lq = _queries(log_q)
+    in_range = (lq >= log_t[..., :1]) & (lq <= log_t[..., -1:])
     em50 = torch.where(in_range, em50, 0.0)
 
     # Doppler pattern follows the resampled (moving) ring angle
@@ -149,7 +159,7 @@ def eats_flux_plain(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
     """The kernel's function in PyTorch, in chunks of (live point, ring)
     rows; the operands of :func:`eats_flux` -> [B, Th, F, T]."""
     n_b, n_th, n_r = t_delay.shape
-    n_t, n_phi, n_f = log_q.shape[0], cphi.shape[0], nu_obs.shape[1]
+    n_t, n_phi, n_f = log_q.shape[-1], cphi.shape[0], nu_obs.shape[1]
     rows = n_b * n_th
     td = t_delay.reshape(rows, n_r)
     tracks = log_tracks.transpose(1, 2).reshape(rows, N_TRACKS, n_r)
@@ -160,7 +170,8 @@ def eats_flux_plain(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
         e = min(rows, s + chunk)
         idx = point[s:e]
         out[s:e] = _eats_rows(td[s:e], tracks[s:e], r_grid[idx], scal[idx],
-                              log_q, cphi, wphi, nu_obs[idx])
+                              log_q if log_q.dim() == 1 else log_q[idx],
+                              cphi, wphi, nu_obs[idx])
     return out.reshape(n_b, n_th, n_f, n_t)
 
 
@@ -247,10 +258,12 @@ def _check_operands(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi,
         raise ValueError(f"t_delay has shape {tuple(t_delay.shape)}, "
                          "expected (B, Th, R)")
     n_b, n_th, n_r = t_delay.shape
-    n_t, n_phi = log_q.shape[0], cphi.shape[0]
+    n_phi = cphi.shape[0]
     n_f = nu_obs.shape[-1] if nu_obs.dim() == 2 else -1
+    # shared queries [T], or one a row [B, 1]
+    q_shape = (log_q.shape[0],) if log_q.dim() == 1 else (n_b, 1)
     expected = {"log_tracks": (n_b, N_TRACKS, n_th, n_r), "r_grid": (n_b, n_r),
-                "scal": (n_b, N_SCAL), "log_q": (n_t,), "cphi": (n_phi,),
+                "scal": (n_b, N_SCAL), "log_q": q_shape, "cphi": (n_phi,),
                 "wphi": (n_phi,), "nu_obs": (n_b, n_f)}
     for name, t in named[1:]:
         if tuple(t.shape) != expected[name]:
@@ -264,9 +277,11 @@ def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
 
     t_delay [B, Th, R], log_tracks [B, 5, Th, R], r_grid [B, R],
     scal [B, 8] (z, cos theta_v, sin theta_v, p, theta_v, 0, 0, 0),
-    log_q [T], cphi/wphi [Ph] (phi nodes' cosines and weights) and
-    nu_obs [B, F] (observer-frame frequencies of each live point), all f32.
-    The signature of ``eats_flux_pallas`` with a per-sample ``nu_obs``.
+    log_q [T] shared by the batch or [B, 1] one query a row,
+    cphi/wphi [Ph] (phi nodes' cosines and weights) and nu_obs [B, F]
+    (observer-frame frequencies of each live point), all f32. The signature
+    of ``eats_flux_pallas`` with a per-sample ``nu_obs``; ``jax.vmap`` of
+    that function over a per-row time gives it the per-row queries.
     """
     global LAUNCHES
     ops = (t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs)
@@ -276,13 +291,15 @@ def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     if t_delay.device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {t_delay.device}")
     n_b, n_th, n_r = t_delay.shape
-    n_t, n_phi, n_f = log_q.shape[0], cphi.shape[0], nu_obs.shape[1]
+    n_t, n_phi, n_f = log_q.shape[-1], cphi.shape[0], nu_obs.shape[1]
+    q_stride = 0 if log_q.dim() == 1 else 1
     lib = _kernels.load("grb_eats")
-    if not lib.nmma_grb_eats_supported(n_b, n_th, n_r, n_t, n_phi, n_f):
+    if not lib.nmma_grb_eats_supported(n_b, n_th, n_r, n_t, n_phi, n_f,
+                                       q_stride):
         raise ValueError(
             f"K3 is not built for B={n_b}, Th={n_th}, R={n_r}, T={n_t}, "
-            f"Ph={n_phi}, F={n_f} (limits: nmma_grb_eats_supported in "
-            "csrc/grb_eats.cu)")
+            f"Ph={n_phi}, F={n_f}, log_q {tuple(log_q.shape)} (limits: "
+            "nmma_grb_eats_supported in csrc/grb_eats.cu)")
     out = torch.empty((n_b, n_th, n_f, n_t), dtype=torch.float32,
                       device=t_delay.device)
     if n_b == 0:
@@ -291,7 +308,7 @@ def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nmma_grb_eats(
             *(t.data_ptr() for t in ops), out.data_ptr(), n_b, n_th, n_r,
-            n_t, n_phi, n_f, t_delay.device.index, stream)
+            n_t, n_phi, n_f, q_stride, t_delay.device.index, stream)
     _kernels.check(lib, code, "grb_eats launch")
     LAUNCHES += 1
     return out

@@ -82,11 +82,12 @@ def masked_interp(xq, x, y, valid=None, left=None, right=None,
 
 
 def masked_interp_sorted_fill(xq, x, y, fill):
-    """Masked interpolation for ascending ``x`` [N]: each query of ``xq``
-    [Q] uses its nearest valid neighbours in ``y`` [..., N] (rows along the
-    last dimension); queries outside a row's valid range get ``fill``.
-    Returns [..., Q]."""
-    n = x.shape[0]
+    """Masked interpolation for ascending ``x`` [N] shared by every row, or
+    [B, N], one grid per row of ``y`` [B, N] (``jax.vmap`` of the JAX
+    function over x and y): each query of ``xq`` [Q] uses its nearest
+    valid neighbours in ``y`` [..., N] (rows along the last dimension);
+    queries outside a row's valid range get ``fill``. Returns [..., Q]."""
+    n = x.shape[-1]
     valid = torch.isfinite(y)
     n_valid = valid.sum(-1, keepdim=True)
     idx = torch.arange(n, device=x.device).expand_as(y)
@@ -95,24 +96,30 @@ def masked_interp_sorted_fill(xq, x, y, fill):
     right_of = n - 1 - torch.flip(torch.cummax(
         torch.flip(torch.where(valid, n - 1 - idx, -1), (-1,)), -1).values,
         (-1,))
+    if x.dim() == 1:
+        pos = (xq[..., None] >= x).sum(-1)                        # [Q]
+        pos = pos.expand(*y.shape[:-1], -1)
+    else:
+        pos = (xq[:, None] >= x[:, None, :]).sum(-1)              # [B, Q]
+    x = x.expand_as(y)
+    pos = torch.clamp(pos - 1, 0, n - 1)
 
     def at(row, index):                     # row[..., index[..., Q]]
         return torch.gather(row, -1, index.clamp(0, n - 1))
 
-    pos = torch.clamp((xq[..., None] >= x).sum(-1) - 1, 0, n - 1)     # [Q]
-    l_idx = left_of[..., pos]
-    r_idx = right_of[..., torch.clamp(pos + 1, 0, n - 1)]
+    l_idx = at(left_of, pos)
+    r_idx = at(right_of, pos + 1)
     # a query beyond the last grid cell still needs the last valid point
     r_idx = torch.where(pos >= n - 1, left_of[..., n - 1:], r_idx)
     l_ok = l_idx >= 0
     r_ok = (r_idx >= 0) & (r_idx <= n - 1)
-    x_l, y_l = x[l_idx.clamp(0, n - 1)], at(y, l_idx)
-    x_r, y_r = x[r_idx.clamp(0, n - 1)], at(y, r_idx)
+    x_l, y_l = at(x, l_idx), at(y, l_idx)
+    x_r, y_r = at(x, r_idx), at(y, r_idx)
     span = torch.where(x_r > x_l, x_r - x_l, 1.0)
     w = torch.clamp((xq - x_l) / span, 0.0, 1.0)
     est = torch.where(l_ok & r_ok, y_l + w * (y_r - y_l), fill)
-    x_first = x[right_of[..., :1].clamp(0, n - 1)]
-    x_last = x[left_of[..., n - 1:].clamp(0, n - 1)]
+    x_first = at(x, right_of[..., :1])
+    x_last = at(x, left_of[..., n - 1:])
     est = torch.where((xq < x_first) | (xq > x_last), fill, est)
     return torch.where(n_valid >= 2, est, fill)
 

@@ -254,7 +254,9 @@ class Interped(Prior):
     def log_prob(self, x):
         dens = interp(x, self._table("xx", x), self._table("yy", x),
                       left=0.0, right=0.0)
-        return torch.log(torch.clamp(dens, min=1e-30))
+        # -inf where the density is 0, as the JAX package's f32
+        # log(max(dens, 1e-300)), whose floor rounds to 0
+        return torch.log(torch.clamp(dens, min=0.0))
 
 
 class UniformComovingVolume(Interped):

@@ -16,8 +16,10 @@ each assembles its analysis and stops; then
 
 A tiny full run of the port's CLI (nlive 64, dlogz 1) writes every result
 file and its checkpoint, and ``--skip-sampling`` regenerates its logZ from
-the checkpoint bit for bit. Each option whose module the port does not have
-yet raises NotImplementedError naming its ROADMAP item.
+the checkpoint bit for bit. ``--sampler mcmc`` writes the JAX package's
+result keys in both packages, and ``EMAnalysis.run_mcmc`` agrees with a
+nested run on the posterior medians. Each option whose module the port
+does not have yet raises NotImplementedError naming its ROADMAP item.
 """
 
 import configparser
@@ -142,7 +144,6 @@ def test_cli_full_run_and_skip_sampling(config):
 
 
 UNPORTED = {
-    "mcmc": (["--sampler", "mcmc"], 13),
     "neuralnet": (["--sampler", "neuralnet"], 18),
     "fits": (["--fits-file", "skymap.fits"], 17),
     "limit_fits": (["--detection-limit-fits-file", "limits.fits"], 17),
@@ -167,8 +168,6 @@ def test_unported_entry_points_name_their_items(config, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         t_cli.main([path, "--svd-path", "", "--model", "Fiesta_kn_model",
                     "--skip-sampling"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        t_cli.lbol_main([])
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         t_injections.read_injection_file(tmp_path / "injections.xml")
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
@@ -260,3 +259,90 @@ def test_photometry_io_helpers_match(tmp_path):
     out_t = t_io.convert_skyportal_lcs(str(csv), str(tmp_path / "t.dat"))
     out_j = j_io.convert_skyportal_lcs(str(csv), str(tmp_path / "j.dat"))
     assert open(out_t).read() == open(out_j).read()
+
+
+def test_cli_mcmc_writes_the_jax_keys(config):
+    """--sampler mcmc at a tiny size in both packages: the same result-file
+    keys and csv columns, and the port's n_call; --skip-sampling stops
+    before any sweep (nmma_tpu/cli/lightcurve_analysis.py:211-240)."""
+    root, path = config
+    flags = ["--sampler", "mcmc", "--mcmc-walkers", "32", "--mcmc-sweeps",
+             "6"]
+    j_cli.main([path, "--outdir", str(root / "mcmc_jax"), *flags])
+    ana = t_cli.main([path, "--outdir", str(root / "mcmc_port"), *flags],
+                     device="cpu")
+    res = ana.mcmc_result
+    assert res.n_call == 6 * 32 + 32
+    assert np.isfinite(res.acceptance) and res.samples_u.shape[1] == 11
+    want = np.load(root / "mcmc_jax" / "cli_mcmc_result.npz")
+    got = np.load(root / "mcmc_port" / "cli_mcmc_result.npz")
+    assert sorted(got.files) == sorted(want.files)
+    assert int(got["ncall"]) == int(want["ncall"])
+    assert got["posterior_log10_mej_dyn"].shape == \
+        want["posterior_log10_mej_dyn"].shape
+
+    def columns(outdir):
+        with open(outdir / "cli_mcmc_posterior_samples.csv") as f:
+            return set(f.readline().strip().split(","))
+    assert columns(root / "mcmc_port") == columns(root / "mcmc_jax")
+    skipped = t_cli.main([path, "--outdir", str(root / "mcmc_skip"), *flags,
+                          "--skip-sampling"], device="cpu")
+    assert not hasattr(skipped, "mcmc_result")
+    assert not (root / "mcmc_skip" / "cli_mcmc_result.npz").exists()
+
+
+def test_run_mcmc_matches_the_nested_posterior(config):
+    """EMAnalysis.run_mcmc on the CLI's photometry with the two ejecta
+    masses free and the rest fixed (no systematics): R-hat, a finite logL
+    for every kept draw, and the posterior medians and widths against a
+    nested run on the same likelihood (the two samplers share nothing but
+    the likelihood). The rest is fixed at 80 Mpc and timeshift -0.05 d,
+    where the logL is finite on the whole mass square; at the injection's
+    40 Mpc and 0 d this configuration's logL is the -1e30 sentinel in both
+    packages. The full configuration has ~70% of its prior volume at the
+    sentinel, which holds some untempered walkers on that plateau in both
+    packages (max R-hat ~5 after 2,000 sweeps); chip_smoke.py's [mcmc]
+    runs it with a tempering ladder."""
+    from nmma_tpu_torch.inference import EnsembleMCMCConfig
+    root, path = config
+    fixed = {k: v for k, v in INJECTION.items()
+             if k not in ("log10_mej_dyn", "log10_mej_wind", "trigger_time")}
+    fixed.update(luminosity_distance=80.0, timeshift=-0.05)
+    (root / "two.prior").write_text(
+        PRIOR.splitlines()[0] + "\n" + PRIOR.splitlines()[1] + "\n"
+        + "".join(f"{k} = {v}\n" for k, v in fixed.items()))
+    cfg = yaml.safe_load(open(path))
+    cfg.update({"prior": str(root / "two.prior"), "ebv-max": 0.0,
+                "nlive": 256, "dlogz": 0.1})
+    del cfg["systematics-file"]
+    two = root / "two.yaml"
+    two.write_text(yaml.safe_dump(cfg))
+    ana = _skip_sampling_run(t_cli.main, str(two), root / "run_mcmc",
+                             device="cpu")
+    assert ana.priors.sampled_names == ["log10_mej_dyn", "log10_mej_wind"]
+    post = ana.run_mcmc(EnsembleMCMCConfig(walkers=32, sweeps=1500, seed=3),
+                        verbose=False)
+    assert (root / "run_mcmc" / "cli_mcmc_posterior_samples.csv").exists()
+    assert np.nanmax(ana.mcmc_result.rhat) < 1.1, ana.mcmc_result.rhat
+    assert (ana.mcmc_result.logl > -1e29).all()
+    ref = t_cli.main([str(two), "--outdir", str(root / "run_mcmc_ns")],
+                     device="cpu").posterior_samples()
+    for key in ("log10_mej_dyn", "log10_mej_wind"):
+        scale = np.std(ref[key])
+        print(key, np.median(post[key]), np.median(ref[key]),
+              np.std(post[key]), scale)
+        assert abs(np.median(post[key]) - np.median(ref[key])) < 0.3 * scale
+        assert abs(np.std(post[key]) / scale - 1.0) < 0.2
+
+
+def test_lbol_main_needs_its_csv_columns(tmp_path):
+    """lbol_main, ported, reads phase, Lbb and Lbb_unc by name (numpy's
+    genfromtxt): a csv without them is refused."""
+    csv = tmp_path / "bad.csv"
+    csv.write_text("time,L\n1.0,1e42\n2.0,2e42\n")
+    prior = tmp_path / "a.prior"
+    prior.write_text("tau_m = Uniform(minimum=5., maximum=30.)\n"
+                     "log10_mni = Uniform(minimum=-2., maximum=0.)\n")
+    with pytest.raises(ValueError, match="phase"):
+        t_cli.lbol_main(["--prior", str(prior), "--light-curve-data",
+                         str(csv), "--outdir", str(tmp_path)], device="cpu")

@@ -279,6 +279,9 @@ def test_k3_wrapper_checks_its_operands(captured):
         k3.eats_flux(*ops[:7], ops[7].to("meta"))
     with pytest.raises(ValueError, match="no K3 kernel for device meta"):
         k3.eats_flux(*(o.to("meta") for o in ops))
+    # queries are shared [T] or one a row [B, 1]
+    with pytest.raises(ValueError, match="log_q has shape"):
+        k3.eats_flux(*ops[:4], ops[4][None, :2].contiguous(), *ops[5:])
 
 
 # -- K3's two live hat nodes ------------------------------------------------
@@ -531,14 +534,138 @@ def test_static_switches():
         TG.grb_afterglow_flux_density(t, nu, params, **SMALL)
 
 
-def test_e0_ramp_is_not_ported():
-    params = as_port(draw(1, 3))
-    params.update(energy_exponential=torch.ones(1),
-                  log10_Eend=torch.full((1,), 52.0),
-                  t_start=torch.ones(1), injection_duration=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.trpi2018_mags(params, torch.from_numpy(T_OBS),
-                         torch.from_numpy(NU)[None])
+# -- the energy ramp (nmma_tpu/models/grb.py:715-749) ------------------------
+#
+# Every node of the 64-node internal time grid has its own blast-wave energy,
+# so the port folds the nodes into the batch: row (b, i) runs stage 1 with
+# its own time (t_obs_day [rows, 1]) and K3 with its own query (log_q
+# [rows, 1]), in chunks of models/grb.py:ramp_chunk_rows rows.
+
+RAMP_NAMES = ("thetaCore", "thetaWing", "inclination_EM", "log10_n0", "p",
+              "log10_epsilon_e", "log10_epsilon_B", "xi_N", "d_L",
+              "energy_exponential", "log10_Eend", "t_start",
+              "injection_duration")
+RAMP_T = np.geomspace(0.05, 200.0, 40).astype(np.float32)
+
+
+def ramp_draws(b, seed):
+    """Ramp parameters around tests/test_grb.py:287-293's point: t_start
+    1e4-5e4 s and the ramp's end 1e6-3e6 s fall inside the 0.05-201 d
+    grid, so every live point has nodes before, on and after its ramp."""
+    rng = np.random.default_rng(seed)
+    lo = np.array([0.05, 0.3, 0.0, -3.0, 2.2, -1.5, -3.5, 1.0, 3.086e19,
+                   0.8, 52.0, 1e4, 1e6])
+    hi = np.array([0.12, 0.4, 0.1, -1.0, 2.6, -0.8, -2.5, 1.0, 3.086e19,
+                   1.4, 53.0, 5e4, 3e6])
+    return rng.uniform(lo, hi, (b, len(RAMP_NAMES))).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode,tol", [("fused", 1e-3), ("einsum", 1e-2)])
+def test_e0_ramp_mags_match(monkeypatch, mode, tol):
+    """trpi2018_mags on ramp inputs against jax.vmap of the JAX function,
+    at the SMALL resolution and the gates of test_detector_mags_match:
+    identical inf, 1e-3 mag of the fused JAX model (1e-2 of its bf16 hat),
+    points fainter than FAINT_MAG counted, not compared."""
+    monkeypatch.setenv("NMMA_TPU_GRB_CONTRACT", mode)
+    theta = ramp_draws(4, 41)
+    nu = np.array([5e14, 2.4e17, 6e9], dtype=np.float32)
+    got = TG.trpi2018_mags(as_port(theta, RAMP_NAMES),
+                           torch.from_numpy(RAMP_T),
+                           torch.from_numpy(nu)[None].expand(4, -1),
+                           **SMALL).numpy()
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda q: G.trpi2018_mags(q, RAMP_T, nu, **SMALL)))(
+            as_jax(theta, RAMP_NAMES)))
+    assert got.shape == want.shape == (4, 3, 40)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    faint = fin & (want >= FAINT_MAG)
+    sel = fin & ~faint
+    print(f"TrPi2018 ramp vs JAX {mode}: max |dmag| "
+          f"{np.abs(got[sel] - want[sel]).max():.3e}; {int(faint.sum())} of "
+          f"{int(fin.sum())} finite points fainter than {FAINT_MAG}")
+    assert fin.mean() > 0.9 and faint.sum() < FAINT_SHARE * fin.sum()
+    np.testing.assert_allclose(got[sel], want[sel], rtol=0, atol=tol)
+
+
+def test_e0_ramp_chunks_do_not_change_the_flux(monkeypatch):
+    """The folded rows in chunks of 50 give the one-chunk magnitudes within
+    1e-5 mag, a few f32 ulps: a chunk boundary moves the split between
+    PyTorch's vectorised and scalar CPU loops and the plain K3's batched
+    products."""
+    theta = ramp_draws(3, 42)
+    args = (as_port(theta, RAMP_NAMES), torch.from_numpy(RAMP_T),
+            torch.from_numpy(NU)[None].expand(3, -1))
+    whole = TG.trpi2018_mags(*args, **SMALL).numpy()
+    row_bytes = TG._STAGE1_ROW_TENSORS * 4 * SMALL["n_theta"] * SMALL["n_r"]
+    monkeypatch.setattr(TG, "RAMP_CHUNK_BYTES", 50 * row_bytes)
+    assert TG.ramp_chunk_rows(SMALL["n_theta"], SMALL["n_r"]) == 50
+    chunked = TG.trpi2018_mags(*args, **SMALL).numpy()
+    np.testing.assert_array_equal(np.isinf(chunked), np.isinf(whole))
+    fin = np.isfinite(whole)
+    np.testing.assert_allclose(chunked[fin], whole[fin], rtol=0, atol=1e-5)
+    assert TG.ramp_chunk_rows() == 50 * SMALL["n_theta"] * SMALL["n_r"] \
+        // (TG.N_THETA * TG.N_R)
+
+
+def test_ramp_log10_e0_matches_jax():
+    """The ramp's log10 E0 at each node: held before t_start, the ramp,
+    log10_Eend after the injection (f32, within 1e-5)."""
+    theta = ramp_draws(6, 43)
+    t_grid = np.geomspace(0.05, 201.0, 64).astype(np.float32)
+    got = TG._ramp_log10_e0(as_port(theta, RAMP_NAMES),
+                            torch.from_numpy(t_grid)).numpy()
+    p = as_jax(theta, RAMP_NAMES)
+    t_sec = jnp.asarray(t_grid) * 86400.0
+    a, le = p["energy_exponential"][:, None], p["log10_Eend"][:, None]
+    ts, te = p["t_start"][:, None], p["injection_duration"][:, None]
+    want = np.asarray(jnp.where(
+        t_sec <= ts, le + a * jnp.log10(ts / te),
+        jnp.where(t_sec >= te, le, le + a * jnp.log10(t_sec / te))))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got[:, 0] < got[:, -1]).all()
+
+
+def test_stage1_per_row_time_matches_a_loop_of_the_shared_form():
+    """grb_stage1 with one time a row ([rows, 1]) against a loop that runs
+    the shared form ([1]) on each row alone: every operand equal (rtol
+    1e-6: PyTorch's vectorised and scalar CPU loops may round an
+    elementwise function differently)."""
+    theta = draw(5, 44)
+    times = torch.from_numpy(T_OBS[[0, 10, 30, 50, 63]].copy())
+    nu = torch.from_numpy(NU)[None].expand(5, -1).contiguous()
+    params = dict(as_port(theta), d_L=3.086e19)
+    rows = TG.grb_stage1(times[:, None], nu, params, **SMALL)
+    assert rows[0][4].shape == (5, 1)
+    for i in range(5):
+        one = TG.grb_stage1(times[i:i + 1], nu[i:i + 1],
+                            {k: (v[i:i + 1] if isinstance(v, torch.Tensor)
+                                 else v) for k, v in params.items()},
+                            **SMALL)
+        for k, (got, want) in enumerate(zip(rows[0], one[0])):
+            got = got if k in (5, 6) else got[i:i + 1]
+            np.testing.assert_allclose(got.reshape(want.shape).numpy(),
+                                       want.numpy(), rtol=1e-6, atol=0)
+        for got, want in zip(rows[1:], one[1:]):
+            np.testing.assert_allclose(got[i:i + 1].numpy(), want.numpy(),
+                                       rtol=1e-6, atol=0)
+
+
+def test_k3_per_row_queries_equal_the_shared_mode_one_row_at_a_time():
+    """The plain K3 with one query a row (log_q [B, 1]) equals, row by
+    row, the shared mode given that row and its one query, bit for bit,
+    on the hand-made edge rows (each live point's query cycles through the
+    37: on a node, on a plateau, at both ends, outside the rows)."""
+    ops = k3.edge_operands(8, 4, 100, 37, 5, 3, seed=45)
+    per_row = ops[4][torch.arange(8) * 5 % 37][:, None].contiguous()
+    got = k3.eats_flux(*ops[:4], per_row, *ops[5:])
+    assert got.shape == (8, 4, 3, 1)
+    for b in range(8):
+        one = [o[b:b + 1].contiguous() for o in ops[:4]]
+        want = k3.eats_flux(*one, per_row[b], *ops[5:7],
+                            ops[7][b:b + 1].contiguous())
+        assert torch.equal(got[b:b + 1], want), b
+    assert (got == 0).any() and (got != 0).any()
 
 
 # -- the detector model and the likelihood ----------------------------------

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: importing all of ``nmma_tpu_torch`` loads
-no JAX and nothing of the JAX package, and its entry points refuse to fall
-back to the CPU when no CUDA device is present and none was asked for."""
+"""The PyTorch port stands alone: importing all of ``nmma_tpu_torch`` and
+the port's scripts (scripts/torch_*.py) loads no JAX and nothing of the JAX
+package, and its entry points refuse to fall back to the CPU when no CUDA
+device is present and none was asked for."""
 
 import os
 import subprocess
@@ -19,16 +20,28 @@ names = [m.name for m in pkgutil.walk_packages(nmma_tpu_torch.__path__,
                                                 "nmma_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import glob
+import importlib.util
+scripts = sorted(glob.glob("scripts/torch_*.py"))
+for path in scripts:
+    spec = importlib.util.spec_from_file_location(
+        "port_script_" + path.split("/")[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 top = {n.split(".")[0] for n in sys.modules}
 bad = sorted(t for t in top if t.startswith("jax") or t in ("flax", "nmma_tpu"))
-print("imported", len(names), "modules; forbidden:", bad)
-if bad or len(names) < 15:
+print("imported", len(names), "modules and", len(scripts),
+      "scripts; forbidden:", bad)
+new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
+       "nmma_tpu_torch.models.supernova", "nmma_tpu_torch.models.shock_cooling",
+       "nmma_tpu_torch.likelihood.bolometric", "nmma_tpu_torch.em_detectors",
+       "nmma_tpu_torch.post_processing.parity"}
+if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
 from nmma_tpu_torch.cli import lightcurve_analysis
-from nmma_tpu_torch.inference import NestedSampler
+from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
 
@@ -41,6 +54,9 @@ ENTRY_POINTS = {
         {"g": {"time": [1.0], "mag": [20.0], "mag_error": [0.1]}}),
     "cli.lightcurve_analysis.main": lambda: lightcurve_analysis.main(
         ["--model", "Me2017", "--skip-sampling"]),
+    "EnsembleMCMC": lambda: EnsembleMCMC(lambda u: u[:, 0], 2),
+    "cli.lightcurve_analysis.lbol_main": lambda: lightcurve_analysis.lbol_main(
+        ["--model", "Arnett"]),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():

@@ -187,3 +187,29 @@ def test_h5_multivariate_prior_matches(tmp_path):
 def test_inclination_prior_from_fits_names_its_item():
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         t_astro.inclination_prior_from_fits("skymap.fits", dL=40.0)
+
+
+LOG_PROB_X = np.array([-1e3, -1.0, 0.0, 0.25, 0.5, 1.0, 5.0, 10.0, 20.0,
+                       499.0, 500.0, 1e3, 1e4], dtype=np.float32)
+
+
+@pytest.mark.parametrize("kind", ["Interped", "UniformComovingVolume",
+                                  "UniformSourceFrame"])
+def test_log_prob_outside_the_support_matches_jax(kind):
+    """-inf where the density is 0, as the JAX package's f32
+    log(max(dens, 1e-300)), whose floor rounds to 0: outside the support,
+    and at x = 0 of an Interped density x^2; inside it within 1e-5 (the
+    support tests above)."""
+    if kind == "Interped":
+        xx = np.linspace(0.0, 1.0, 50)
+        j_prior, t_prior = (mod.Interped(xx, xx ** 2)
+                            for mod in (j_core, t_core))
+    else:
+        j_prior, t_prior = (getattr(mod, kind)(minimum=10.0, maximum=500.0)
+                            for mod in (j_core, t_core))
+    want = np.asarray(j_prior.log_prob(jnp.asarray(LOG_PROB_X)))
+    got = t_prior.log_prob(torch.from_numpy(LOG_PROB_X)).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    assert np.isneginf(got).sum() >= 4 and not np.isnan(got).any()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-5)
