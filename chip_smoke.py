@@ -13,8 +13,9 @@ F=9, Q=150) through K1, the analytic Me2017 kilonova (299 shells, T=150,
 JAX package's full resolution (48 rings x 16 phi nodes, 256 radii, stage 2
 on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
 through K2 and K3; then TrPi2018's energy ramp through K3's per-row mode,
-config 3's posterior against the JAX package's, the ensemble MCMC, and the
-supernova, shock-cooling, spectral and bolometric paths:
+config 3's posterior against the JAX package's, the ensemble MCMC, the
+supernova, shock-cooling, spectral and bolometric paths, and GW-only BNS
+inference through nmma-generation / nmma-analysis (no kernel):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -136,6 +137,44 @@ supernova, shock-cooling, spectral and bolometric paths:
  20. lbol     lightcurve-analysis-lbol (lbol_main) on an Arnett csv from an
               injection, to convergence at nlive=256: finite logZ and the
               injection inside each parameter's 90% interval.
+ 21. gw_waveform
+              the GW-only BNS path (BASELINE config 5's GW settings: H1, L1
+              and V1, 64 s, 25-1024 Hz, IMRPhenomD_NRTidalv2, relative
+              binning at epsilon 0.1; no K1-K3 on it): TaylorF2, IMRPhenomD
+              and IMRPhenomD_NRTidalv2 at B = 8192 on the relative-binning
+              edges of the three detectors and at B = 256 on the dense grid
+              (63,937 bins), device ms, card against CPU (amplitude within
+              GW_AMP_RTOL, complex strain within GW_STRAIN_TOL of its
+              maximum); then a 36+29 Msun BBH whose band reaches PhenomD's
+              intermediate amplitude: its 5x5 solve and amplitude against
+              the CPU.
+ 22. gw_logl  nmma_generation at full width on a json injection (a
+              zero-noise injection), then the relative-binning joint
+              likelihood of the dump through build_joint_likelihood at
+              B = 8192: finite share, evals/s over 5 rounds of >= 0.4 s,
+              device-busy ms, launches and idle share at B = 8192 and 128
+              ([gw_profile]), peak memory; the card against the port on the
+              CPU at B = 128 (the GW logL gate, identical sentinels); logL
+              at the injection against SNR^2/2 within 2e-3; relative
+              binning against dense within 1.0 at tests/test_gw.py's five
+              points.
+ 23. gw_dense the dense likelihood, and the phase + distance + time
+              marginalised one (262,144-point FFTs), at B = 1024 and 8192 in
+              chunks of DENSE_CHUNK_BYTES: ms, chunks and peak memory.
+ 24. gw_sampler
+              nmma_analysis's sampler on the relative-binning likelihood
+              (nlive=1024, n_delete=128, walks=24), capped at 40 iterations
+              and 90 s: batched logL calls 1 + iterations x walks, finite
+              logZ, no K1-K3 launch.
+ 25. gw_cli   nmma_generation on a LIGO-LW xml injection and one .gwf strain
+              file per detector (written by write_gwf: 256 s of seeded
+              design-PSD noise, then the 64 s segment with the injection and
+              a zero noise realisation), through the read, median-Welch PSD,
+              Tukey window and FFT; then nmma_analysis in process to
+              convergence under GW_CLI_CAP: the generation's seconds per
+              phase, iterations, logZ, seconds, and the injection inside
+              the 90% intervals of chirp_mass, mass_ratio and
+              luminosity_distance.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -376,6 +415,57 @@ tau_m = Uniform(minimum=5., maximum=30.)
 log10_mni = Uniform(minimum=-2., maximum=0.)
 """
 ARNETT_INJECTION = {"tau_m": 15.0, "log10_mni": -0.5}
+# the GW-only BNS path: BASELINE config 5's GW settings
+# (scripts/bench_joint_pe.py:47-52) without its EM and EOS parts, and the
+# injection of tests/test_gw.py:11-13
+GW_DETECTORS = "H1,L1,V1"
+GW_DURATION = 64.0
+GW_FMIN, GW_FMAX = 25.0, 1024.0
+GW_WAVEFORM = "IMRPhenomD_NRTidalv2"
+GW_EPSILON = 0.1
+GW_TRIGGER = 1187008882.4
+GW_PRIOR_TEXT = """\
+chirp_mass = Uniform(name='chirp_mass', minimum=1.18, maximum=1.21)
+mass_ratio = Uniform(name='mass_ratio', minimum=0.6, maximum=1.0)
+lambda_1 = Uniform(name='lambda_1', minimum=0, maximum=5000)
+lambda_2 = Uniform(name='lambda_2', minimum=0, maximum=5000)
+luminosity_distance = Uniform(name='luminosity_distance', minimum=10, maximum=100)
+theta_jn = Sine(name='theta_jn')
+phase = Uniform(name='phase', minimum=0, maximum=2 * np.pi, boundary='periodic')
+psi = Uniform(name='psi', minimum=0, maximum=np.pi, boundary='periodic')
+ra = Uniform(name='ra', minimum=0, maximum=2 * np.pi, boundary='periodic')
+dec = Cosine(name='dec')
+geocent_time = Uniform(name='geocent_time', minimum=-0.1, maximum=0.1)
+"""
+GW_INJECTION = {"mass_1": 1.48, "mass_2": 1.26, "lambda_1": 300.0,
+                "lambda_2": 500.0, "luminosity_distance": 40.0,
+                "theta_jn": 0.4, "phase": 1.3, "ra": 3.446, "dec": -0.408,
+                "psi": 1.5, "geocent_time": 0.0}
+# the IMRPhenomD BBH of tests/test_joint_cli_breadth.py:17-19, whose band
+# reaches the intermediate amplitude and its 5x5 solve (Mf 0.014 at 44 Hz)
+GW_BBH = {"mass_1": 36.0, "mass_2": 29.0, "chi_1": 0.0, "chi_2": 0.0,
+          "luminosity_distance": 600.0, "theta_jn": 0.4, "phase": 1.0,
+          "ra": 1.3, "dec": -0.5, "psi": 0.7, "geocent_time": 0.0}
+# the waveforms card against CPU: amplitude relative where it exceeds 1e-6
+# of its maximum (f32 libm ulps, ~1e-6); the complex strain as
+# max|h_card - h_cpu| / max|h_cpu|, held by the f32 rounding of phases of
+# ~1e4 rad at 25 Hz (an ulp is 1e-3 rad; the port against the JAX package
+# reads <= 7e-3, tests/test_torch_gw_waveforms.py)
+GW_AMP_RTOL = 1e-4
+GW_STRAIN_TOL = 2e-2
+# the logL gate on GW paths: 1e-2 + 1e-4 |logL| + GW_PHASE_ULP <d,d>.
+# logL is a difference of inner products of size <d,d> = SNR^2, and the
+# BNS phase at 25 Hz (~6e3 rad) carries f32 rounding that differs between
+# libms; to first order logL moves by <d,d> times the phase difference
+# (tests/test_torch_gw_likelihood.py)
+GW_PHASE_ULP = 2.0**-10      # rad, an f32 ulp of a phase in [8192, 16384)
+GW_SNR_RTOL = 2e-3           # logL(injection) against SNR^2/2, test_gw.py:28
+GW_RB_ATOL = 1.0             # relative binning against dense, test_gw.py:44
+# [gw_cli]'s sampler: a probe at nlive=1024, n_delete=128, walks=24 took
+# 400 iterations (303 s, host-bound); a quarter of the live set a round
+# halves the iterations, 16 walks a point cut each one by a third
+GW_CLI_NLIVE, GW_CLI_NDELETE, GW_CLI_WALKS = 1024, 256, 16
+GW_CLI_CAP = 600
 # f32 operations that K3's function needs, an FMA counted as two and a sin,
 # exp or log as one, from the steps of csrc/grb_eats.cu: per (live point,
 # ring, phi, r) the arrival-time map, its log, the cummax and the cap at 60;
@@ -1851,6 +1941,471 @@ def lbol_path(np, torch):
                            f"{outside}")
 
 
+def kernel_launches():
+    """(K1, K2, K3) launch counts since the last reset_launches()."""
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    return (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES, grb_kernel.LAUNCHES)
+
+
+def reset_launches():
+    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = grb_kernel.LAUNCHES = 0
+
+
+def gw_logl_gate(torch, got, want, data_power):
+    """Sentinels identical and |got - want| <= 1e-2 + 1e-4 |want| +
+    GW_PHASE_ULP <d,d> where finite; returns (max |dlogL|, largest share of
+    the gate used)."""
+    if not torch.equal(got > -1e29, want > -1e29):
+        raise RuntimeError("GW logL sentinel positions differ")
+    ok = want > -1e29
+    d = (got - want)[ok].abs()
+    allowed = LOGL_ATOL + LOGL_RTOL * want[ok].abs() + GW_PHASE_ULP * data_power
+    share = float((d / allowed).max()) if d.numel() else 0.0
+    if share > 1.0:
+        raise RuntimeError(f"GW logL off by {float(d.max())} (gate share "
+                           f"{share:.3f})")
+    return (float(d.max()) if d.numel() else 0.0), share
+
+
+def gw_files(tmp):
+    """The prior file and json injection of the GW path under ``tmp``."""
+    from nmma_tpu_torch.injections import write_injection_file
+
+    prior = os.path.join(tmp, "bns.prior")
+    with open(prior, "w") as f:
+        f.write(GW_PRIOR_TEXT)
+    injection = os.path.join(tmp, "injection.json")
+    write_injection_file(injection, {k: [v] for k, v in GW_INJECTION.items()})
+    return prior, injection
+
+
+def gw_generation_args(tmp, label):
+    return ["--outdir", os.path.join(tmp, "outdir"), "--label", label,
+            "--trigger-time", repr(GW_TRIGGER), "--gw-detectors", GW_DETECTORS,
+            "--duration", repr(GW_DURATION),
+            "--minimum-frequency", repr(GW_FMIN),
+            "--maximum-frequency", repr(GW_FMAX), "--waveform", GW_WAVEFORM,
+            "--binning-epsilon", repr(GW_EPSILON)]
+
+
+def gw_waveform(np, torch, gen):
+    """Phase 21: TaylorF2, IMRPhenomD and IMRPhenomD_NRTidalv2 on the
+    relative-binning edges at B = BATCH and on the dense grid at B = 256,
+    card against CPU; then the BBH case whose band reaches PhenomD's
+    intermediate amplitude and its 5x5 solve."""
+    from nmma_tpu_torch.conversion import generate_mass_parameters
+    from nmma_tpu_torch.gw import WAVEFORM_MODELS, imrphenomd
+    from nmma_tpu_torch.gw.phenomd import (
+        _amplitude_intermediate_coefficients, _phenomd_pieces)
+    from nmma_tpu_torch.gw.relative_binning import setup_bins
+    from nmma_tpu_torch.priors import parse_prior_dict
+
+    priors = parse_prior_dict(GW_PRIOR_TEXT)
+    params = generate_mass_parameters(
+        priors.transform(priors.sample_units(gen, BATCH)))
+    edges = setup_bins(GW_FMIN, GW_FMAX, 1.0, GW_EPSILON)
+    dense = np.arange(round(GW_FMIN * GW_DURATION),
+                      round(GW_FMAX * GW_DURATION) + 1) / GW_DURATION
+    grids = {"edges": (np.tile(edges, 3), BATCH, 32),
+             "dense": (dense, 256, 8)}
+
+    def compare(fn, freqs, p, rows):
+        """(amplitude rel error, strain rel error) card against CPU."""
+        f_card = torch.as_tensor(freqs, dtype=torch.float32, device=DEVICE)
+        sub = {k: v[:rows] for k, v in p.items()}
+        got = fn(f_card, sub)[0].cpu()
+        want = fn(f_card.cpu(), {k: v.cpu() for k, v in sub.items()})[0]
+        amp_g, amp_w = got.abs(), want.abs()
+        keep = amp_w > 1e-6 * amp_w.max()
+        amp = float(((amp_g - amp_w).abs()[keep] / amp_w[keep]).max())
+        strain = float((got - want).abs().max() / want.abs().max())
+        return amp, strain
+
+    with torch.no_grad():
+        for name, fn in WAVEFORM_MODELS.items():
+            for grid, (freqs, b, rows) in grids.items():
+                f_card = torch.as_tensor(freqs, dtype=torch.float32,
+                                         device=DEVICE)
+                sub = {k: v[:b] for k, v in params.items()}
+                reset_launches()
+                ms = time_ms(torch, lambda: fn(f_card, sub), rounds=5,
+                             launches=2, warmup=2)
+                amp, strain = compare(fn, freqs, params, rows)
+                if kernel_launches() != (0, 0, 0) or amp > GW_AMP_RTOL \
+                        or strain > GW_STRAIN_TOL or not math.isfinite(amp):
+                    raise RuntimeError(
+                        f"{name} on {grid}: card against CPU amplitude "
+                        f"{amp}, strain {strain}, K1-K3 {kernel_launches()}")
+                say("gw_waveform", waveform=name, grid=grid,
+                    frequencies=len(freqs), batch=b, device_ms=f"{ms:.4f}",
+                    cpu_rows=rows, amp_rel_vs_cpu=f"{amp:.3e}",
+                    strain_rel_vs_cpu=f"{strain:.3e}")
+
+        # the BBH: its 5x5 solve card against CPU, and the amplitude there
+        rng = np.random.default_rng(36)
+        bbh = {k: torch.full((64,), v, device=DEVICE)
+               for k, v in GW_BBH.items()}
+        bbh["mass_1"][1:] = torch.as_tensor(rng.uniform(30.0, 42.0, 63),
+                                            dtype=torch.float32)
+        bbh["mass_2"][1:] = torch.as_tensor(rng.uniform(24.0, 34.0, 63),
+                                            dtype=torch.float32)
+        cols = [bbh[k].reshape(-1, 1) for k in ("mass_1", "mass_2",
+                                                "chi_1", "chi_2")]
+        delta, f3 = _amplitude_intermediate_coefficients(
+            _phenomd_pieces(*cols))
+        delta_cpu, _ = _amplitude_intermediate_coefficients(
+            _phenomd_pieces(*[c.cpu() for c in cols]))
+        solve_rel = float(((delta.cpu() - delta_cpu).abs()
+                           / delta_cpu.abs().clamp(min=1e-30)).max())
+        amp, strain = compare(imrphenomd, dense, bbh, 64)
+        mf = (bbh["mass_1"] + bbh["mass_2"]).cpu() * 4.925490947641267e-06
+        in_band = int(((mf[:, None] * torch.as_tensor(dense)[None] >= 0.014)
+                       & (mf[:, None] * torch.as_tensor(dense)[None]
+                          < f3.cpu())).sum())
+    if amp > GW_AMP_RTOL or strain > GW_STRAIN_TOL or in_band == 0:
+        raise RuntimeError(f"BBH card against CPU: amplitude {amp}, strain "
+                           f"{strain}, 5x5 solve {solve_rel}, "
+                           f"{in_band} intermediate bins")
+    say("gw_waveform", waveform="IMRPhenomD", case="BBH_36+29",
+        batch=64, intermediate_bins=in_band,
+        solve_rel_vs_cpu=f"{solve_rel:.3e}", amp_rel_vs_cpu=f"{amp:.3e}",
+        strain_rel_vs_cpu=f"{strain:.3e}")
+
+
+def gw_logl(np, torch, gen, tmp):
+    """Phase 22: nmma_generation at full width (a zero-noise injection),
+    then the relative-binning joint likelihood of the dump at B = BATCH:
+    finite share, evals/s, device-busy ms, idle share, peak memory; card
+    against CPU at B = 128; logL at the injection against SNR^2/2; relative
+    binning against dense at test_gw.py's five points. Returns (dump,
+    likelihood, priors, <d,d>)."""
+    import pickle
+
+    from nmma_tpu_torch.cli.joint_main import (build_joint_likelihood,
+                                               nmma_generation, unit_cube_logl)
+    from nmma_tpu_torch.gw import GWTransientLikelihood, get_waveform
+
+    prior, injection = gw_files(tmp)
+    t0 = time.time()
+    path = nmma_generation(gw_generation_args(tmp, "gw_logl") + [
+        "--prior-file", prior, "--injection-file", injection])
+    gen_s = time.time() - t0
+    with open(path, "rb") as f:
+        dump = pickle.load(f)
+    likelihood, priors = build_joint_likelihood(dump, device=DEVICE)
+    rb = likelihood.likelihoods[0]
+    logl_fn = unit_cube_logl(likelihood, priors)
+    u = priors.sample_units(gen, BATCH)
+    logl_fn(u[:128])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    logl = logl_fn(u)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    if kernel_launches() != (0, 0, 0):
+        raise RuntimeError(f"the GW logL launched K1-K3 {kernel_launches()}")
+    if logl.shape != (BATCH,) or torch.isnan(logl).any():
+        raise RuntimeError(f"bad GW logL {logl.shape}")
+    finite_share = float((logl > -1e29).float().mean())
+    if finite_share < 0.99:
+        raise RuntimeError(f"only {finite_share} of the GW logL finite")
+    logl_ms, calls, round_ms = throughput(torch, lambda: logl_fn(u))
+    profiles = []
+    for b in (BATCH, SAMPLER_BATCH):
+        ms = logl_ms if b == BATCH else throughput(
+            torch, lambda: logl_fn(u[:b]))[0]
+        busy, n_launch, top, _, _ = device_profile(
+            torch, lambda: logl_fn(u[:b]))
+        profiles.append((b, ms, busy, n_launch))
+        say("gw_profile", batch=b, wall_ms=f"{ms:.4f}",
+            device_busy_ms=f"{busy:.4f}", idle_share=f"{1.0 - busy / ms:.4f}",
+            kernel_launches=n_launch, top=top)
+
+    # logL at the injection against SNR^2/2 (zero noise), with the dense
+    # likelihood's optimal SNR; relative binning against dense near it
+    waveform = get_waveform(GW_WAVEFORM)
+    dense = GWTransientLikelihood(dump["ifos"], waveform=waveform,
+                                  trigger_time=GW_TRIGGER, device=DEVICE)
+    points = [GW_INJECTION, {**GW_INJECTION, "mass_1": 1.4802},
+              {**GW_INJECTION, "luminosity_distance": 44.0},
+              {**GW_INJECTION, "lambda_1": 600.0},
+              {**GW_INJECTION, "theta_jn": 0.5}]
+    batch = {k: torch.tensor([p[k] for p in points], device=DEVICE)
+             for k in GW_INJECTION}
+    with torch.no_grad():
+        snr = float(dense.optimal_snr(batch)[0])
+        rb_five = rb(batch).cpu()
+        dense_five = dense(batch).cpu()
+    data_power = snr**2
+    snr_rel = abs(float(rb_five[0]) - data_power / 2) / (data_power / 2)
+    rb_vs_dense = float((rb_five - dense_five).abs().max())
+    if snr_rel > GW_SNR_RTOL or rb_vs_dense > GW_RB_ATOL:
+        raise RuntimeError(f"GW logL(injection) {float(rb_five[0])} against "
+                           f"SNR^2/2 {data_power / 2} ({snr_rel}); relative "
+                           f"binning against dense {rb_vs_dense}")
+
+    # the card against the port on the CPU, same unit points
+    cpu_lk, cpu_priors = build_joint_likelihood(dump, device="cpu")
+    u_small = u[:SAMPLER_BATCH]
+    got = logl_fn(u_small).cpu()
+    want = unit_cube_logl(cpu_lk, cpu_priors)(u_small.cpu())
+    max_d, share = gw_logl_gate(torch, got, want, data_power)
+    plain_share = float(((got - want).abs() / (
+        LOGL_ATOL + LOGL_RTOL * want.abs())).max())
+    say("gw_logl", batch=BATCH, bins=",".join(map(str, rb.n_bins)),
+        frequencies=len(dump["ifos"][0].frequencies),
+        generation_s=f"{gen_s:.2f}", finite_share=f"{finite_share:.4f}",
+        calls=calls, wall_ms=f"{logl_ms:.4f}",
+        evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+        evals_per_s_rounds=",".join(f"{BATCH / (ms / 1e3):.1f}"
+                                    for ms in round_ms),
+        peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+        snr=f"{snr:.4f}", logl_injection=f"{float(rb_five[0]):.4f}",
+        snr2_half=f"{data_power / 2:.4f}", snr_rel=f"{snr_rel:.3e}",
+        rb_vs_dense_max=f"{rb_vs_dense:.4f}",
+        cpu_batch=SAMPLER_BATCH, max_abs_dlogl_vs_cpu=f"{max_d:.4e}",
+        gate_share=f"{share:.4f}", plain_gate_share=f"{plain_share:.4f}")
+    return dump, likelihood, priors, data_power
+
+
+def gw_dense(np, torch, gen, dump, priors):
+    """Phase 23: the dense likelihood, and the phase + distance + time
+    marginalised one, through build_joint_likelihood at B = 1024 and
+    BATCH, in chunks: ms, peak memory and the chunk count."""
+    from nmma_tpu_torch.cli.joint_main import (build_joint_likelihood,
+                                               unit_cube_logl)
+
+    u = priors.sample_units(gen, BATCH)
+    for kind, flags in (("dense", {"no_relative_binning": True}),
+                        ("marginalized", {"time_marginalization": True,
+                                          "phase_marginalization": True,
+                                          "distance_marginalization": True})):
+        lk, lk_priors = build_joint_likelihood(
+            {**dump, "args": {**dump["args"], **flags}}, device=DEVICE)
+        gw = lk.likelihoods[0]
+        logl_fn = unit_cube_logl(lk, lk_priors)
+        for b in (1024, BATCH):
+            logl_fn(u[:64])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            logl = logl_fn(u[:b])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            finite = float((logl > -1e29).float().mean())
+            if kernel_launches() != (0, 0, 0) or torch.isnan(logl).any() \
+                    or finite < 0.99:
+                raise RuntimeError(f"{kind} GW logL at B={b}: finite share "
+                                   f"{finite}, K1-K3 {kernel_launches()}")
+            say("gw_dense", likelihood=kind, batch=b, ms=f"{ms:.2f}",
+                evals_per_s=f"{b / (ms / 1e3):.1f}", chunks=gw.n_chunks(b),
+                chunk_rows=gw.chunk_rows, peak_mem_mib=f"{peak_mb:.1f}",
+                finite_share=f"{finite:.4f}")
+
+
+def gw_sampler(np, torch, likelihood, priors):
+    """Phase 24: nmma_analysis's sampler on the relative-binning likelihood
+    (nlive=1024, n_delete=128, walks=24), capped at 40 iterations and 90 s:
+    batched logL calls 1 + iterations x walks, finite logZ, no K1-K3
+    launch."""
+    from nmma_tpu_torch.cli.joint_main import unit_cube_logl
+    from nmma_tpu_torch.inference import NestedSampler, NestedSamplerConfig
+
+    logl_fn = unit_cube_logl(likelihood, priors)
+    calls = [0]
+
+    def counted(u):
+        calls[0] += 1
+        return logl_fn(u)
+
+    cfg = NestedSamplerConfig(nlive=1024, n_delete=128, walks=24,
+                              max_iter=40, max_seconds=90.0)
+    reset_launches()
+    t0 = time.time()
+    result = NestedSampler(counted, priors.ndim, cfg,
+                           device=DEVICE).run(verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    expected = 1 + result.niter * cfg.walks
+    if not math.isfinite(result.logz) or calls[0] != expected or \
+            kernel_launches() != (0, 0, 0):
+        raise RuntimeError(f"GW sampler: logZ {result.logz}, {calls[0]} "
+                           f"logL calls (expected {expected}), K1-K3 "
+                           f"{kernel_launches()}")
+    say("gw_sampler", logz=f"{result.logz:.4f}",
+        logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+        logl_calls=calls[0], logl_calls_expected=f"1+{result.niter}x24",
+        likelihood_evals=result.ncall, seconds=f"{seconds:.2f}",
+        evals_per_s=f"{result.ncall / seconds:.1f}",
+        k1_k2_k3_launches=",".join(map(str, kernel_launches())))
+
+
+def gw_xml_injection(path, injection):
+    """A LIGO-LW sim_inspiral table with one row, written with the standard
+    library as tests/test_ligolw.py:14-42 does. geocent_end_time is the
+    offset from the trigger, which is what both packages' CLIs read
+    geocent_time as."""
+    cols = {"simulation_id": 0, "mass1": injection["mass_1"],
+            "mass2": injection["mass_2"], "spin1x": 0.0, "spin1y": 0.0,
+            "spin1z": 0.0, "spin2x": 0.0, "spin2y": 0.0, "spin2z": 0.0,
+            "inclination": injection["theta_jn"],
+            "coa_phase": injection["phase"],
+            "distance": injection["luminosity_distance"],
+            "longitude": injection["ra"], "latitude": injection["dec"],
+            "polarization": injection["psi"],
+            "geocent_end_time": injection["geocent_time"],
+            "geocent_end_time_ns": 0.0}
+    columns = "\n".join(
+        f'      <Column Name="sim_inspiral:{c}" Type="ilwd:char"/>'
+        if c == "simulation_id" else
+        f'      <Column Name="sim_inspiral:{c}" Type="real_8"/>'
+        for c in cols)
+    row = ",".join('"sim_inspiral:simulation_id:0"' if c == "simulation_id"
+                   else repr(float(v)) for c, v in cols.items())
+    with open(path, "w") as f:
+        f.write(f"""<?xml version='1.0' encoding='utf-8'?>
+<!DOCTYPE LIGO_LW SYSTEM "http://ldas-sw.ligo.caltech.edu/doc/ligolwAPI/html/ligolw_dtd.txt">
+<LIGO_LW>
+  <Table Name="sim_inspiral:table">
+{columns}
+      <Stream Name="sim_inspiral:table" Type="Local" Delimiter=",">
+      {row}
+      </Stream>
+  </Table>
+</LIGO_LW>
+""")
+
+
+def gw_strain_files(np, torch, tmp, injection, sample_rate=4096.0,
+                    psd_duration=256.0, post_trigger=2.0):
+    """One .gwf file per detector written by the port's write_gwf: 256 s of
+    Gaussian noise of the design PSD (seeded), from which the generation
+    estimates the PSD by median Welch, then the 64 s analysis segment with
+    the injection projected onto the detector and a zero noise
+    realisation. Returns the --strain-files spec."""
+    from nmma_tpu_torch.gw import get_detector, get_waveform, write_gwf
+    from nmma_tpu_torch.gw.likelihood import as_batch, project_signal
+    from nmma_tpu_torch.gw.strain import StrainSeries
+    from nmma_tpu_torch.gw.waveforms import aligo_design_psd
+
+    seg_start = GW_TRIGGER + post_trigger - GW_DURATION
+    n_seg = int(GW_DURATION * sample_rate)
+    n_off = int(psd_duration * sample_rate)
+    freqs = np.fft.rfftfreq(n_seg, d=1.0 / sample_rate)
+    band = (freqs >= GW_FMIN) & (freqs <= GW_FMAX)
+    spec = []
+    for k, name in enumerate(GW_DETECTORS.split(",")):
+        rng = np.random.default_rng(2017 + k)
+        off_f = np.fft.rfftfreq(n_off, d=1.0 / sample_rate)
+        psd = aligo_design_psd(off_f)
+        amp = np.where(np.isfinite(psd), np.sqrt(psd * psd_duration / 4.0),
+                       0.0)
+        noise_f = amp * (rng.normal(size=off_f.size)
+                         + 1j * rng.normal(size=off_f.size))
+        noise = np.fft.irfft(noise_f * sample_rate, n=n_off)
+        with torch.no_grad():
+            h = project_signal(
+                get_detector(name), get_waveform(GW_WAVEFORM),
+                torch.as_tensor(freqs[band], dtype=torch.float32,
+                                device=DEVICE),
+                as_batch(injection, DEVICE), GW_TRIGGER)[0]
+        h_f = np.zeros(freqs.size, dtype=np.complex128)
+        h_f[band] = h.cpu().numpy()
+        # the template convention puts the merger at zero offset; in the
+        # segment it sits (duration - post_trigger) after the start
+        h_f *= np.exp(-2j * np.pi * freqs * (GW_DURATION - post_trigger))
+        signal = np.fft.irfft(h_f * sample_rate, n=n_seg)
+        series = StrainSeries(np.concatenate([noise, signal]),
+                              seg_start - psd_duration, sample_rate)
+        path = os.path.join(tmp, f"{name}.gwf")
+        write_gwf(path, {f"{name}:SIM-STRAIN": series})
+        spec.append(f"{name}:{path}")
+    return ",".join(spec)
+
+
+def gw_cli(np, torch):
+    """Phase 25: nmma_generation on an xml injection and .gwf strain (read,
+    median-Welch PSD, Tukey window, FFT), then nmma_analysis in process to
+    convergence under a cap; the injection inside the 90% intervals of
+    chirp_mass, mass_ratio and luminosity_distance."""
+    import json as _json
+
+    from nmma_tpu_torch.cli.joint_main import nmma_analysis, nmma_generation
+    from nmma_tpu_torch.conversion import (
+        component_masses_to_chirp_mass)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gw_cli_") as tmp:
+        prior, _ = gw_files(tmp)
+        xml = os.path.join(tmp, "injection.xml")
+        gw_xml_injection(xml, GW_INJECTION)
+        t0 = time.time()
+        strain = gw_strain_files(np, torch, tmp, {
+            **GW_INJECTION, "lambda_1": 0.0, "lambda_2": 0.0})
+        files_s = time.time() - t0
+        t0 = time.time()
+        reset_launches()
+        dump = nmma_generation(gw_generation_args(tmp, "gw_cli") + [
+            "--prior-file", prior, "--injection-file", xml,
+            "--strain-files", strain])
+        with open(os.path.join(tmp, "outdir",
+                               "gw_cli_generation_meta.json")) as f:
+            meta = _json.load(f)
+        result = nmma_analysis([
+            "--data-dump", dump, "--outdir", os.path.join(tmp, "outdir"),
+            "--label", "gw_cli", "--nlive", str(GW_CLI_NLIVE),
+            "--n-delete", str(GW_CLI_NDELETE),
+            "--walks", str(GW_CLI_WALKS), "--dlogz", "0.1",
+            "--max-iter", str(GW_CLI_CAP)])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        post = np.load(os.path.join(tmp, "outdir", "gw_cli_result.npz"))
+        truth = {"chirp_mass": float(component_masses_to_chirp_mass(
+                     torch.tensor(GW_INJECTION["mass_1"]),
+                     torch.tensor(GW_INJECTION["mass_2"]))),
+                 "mass_ratio": GW_INJECTION["mass_2"] / GW_INJECTION["mass_1"],
+                 "luminosity_distance": GW_INJECTION["luminosity_distance"]}
+        intervals = {k: np.quantile(post[f"posterior_{k}"], [0.05, 0.95])
+                     for k in truth}
+    if result.niter >= GW_CLI_CAP or not math.isfinite(result.logz) or \
+            kernel_launches() != (0, 0, 0):
+        raise RuntimeError(f"the GW CLI run: {result.niter} iterations "
+                           f"(cap {GW_CLI_CAP}), logZ {result.logz}, K1-K3 "
+                           f"{kernel_launches()}")
+    outside = {k: (float(lo), float(hi)) for k, (lo, hi) in intervals.items()
+               if not lo <= truth[k] <= hi}
+    say("gw_cli", logz=f"{result.logz:.4f}", logz_err=f"{result.logz_err:.4f}",
+        iterations=result.niter, cap=GW_CLI_CAP, nlive=GW_CLI_NLIVE,
+        n_delete=GW_CLI_NDELETE, walks=GW_CLI_WALKS,
+        likelihood_evals=result.ncall,
+        seconds=f"{seconds:.2f}", strain_files_s=f"{files_s:.2f}",
+        generation_phases_s=",".join(f"{k}={v}" for k, v in
+                                     meta["timings_s"].items()),
+        test_logl=f"{meta['test_logl']:.4f}", **{
+            f"{k}_90": f"{lo:.5f}..{hi:.5f}"
+            for k, (lo, hi) in intervals.items()},
+        truth=",".join(f"{k}={v:.5f}" for k, v in truth.items()))
+    if outside:
+        raise RuntimeError(f"the injection lies outside the 90% intervals "
+                           f"{outside}")
+
+
+def gw_path(np, torch):
+    """Phases 21-25, the GW-only BNS path: no K1, K2 or K3 launch."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    gw_waveform(np, torch, gen)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gw_") as tmp:
+        dump, likelihood, priors, _ = gw_logl(np, torch, gen, tmp)
+        gw_dense(np, torch, gen, dump, priors)
+        gw_sampler(np, torch, likelihood, priors)
+    gw_cli(np, torch)
+
+
 def main() -> int:
     import torch
 
@@ -2051,6 +2606,7 @@ def main() -> int:
     mcmc_path(np, torch, cli_posterior)
     em_models(np, torch, gen)
     lbol_path(np, torch)
+    gw_path(np, torch)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",

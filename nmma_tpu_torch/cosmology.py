@@ -15,7 +15,7 @@ Neff=3.046, m_nu=[0, 0, 0.06] eV) matching astropy's ``Planck18``.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -153,14 +153,39 @@ class Cosmology:
         z_grid, dl_grid = self._grids(d_lum.device)
         return interp(d_lum, dl_grid, z_grid)
 
+    def clone(self, **changes) -> "Cosmology":
+        """A copy with some fields changed (astropy's ``clone``); its tables
+        are built anew."""
+        return replace(self, **changes)
 
+
+# the process-wide default cosmology, mirroring the reference's
+# set_cosmology/get_cosmology singleton (nmma/core/constants.py:44-72)
 PLANCK18 = Cosmology()
+_COSMOLOGY = PLANCK18
+
+
+def set_cosmology(cosmology: Cosmology | None = None) -> Cosmology:
+    """Make ``cosmology`` (Planck18 when None) the default."""
+    global _COSMOLOGY
+    _COSMOLOGY = cosmology if cosmology is not None else PLANCK18
+    return _COSMOLOGY
 
 
 def get_cosmology() -> Cosmology:
-    """The default cosmology (the reference's ``get_cosmology``,
-    nmma/core/constants.py:44-72); the port has no ``set_cosmology`` yet."""
-    return PLANCK18
+    return _COSMOLOGY
+
+
+def redshift_from_parameters(parameters, cosmology: Cosmology | None = None):
+    """Redshift ``[B]`` from a parameter dict: an explicit ``redshift``
+    wins, else z(luminosity_distance), else zeros (reference
+    ``get_redshift``, nmma/core/conversion.py:57-64)."""
+    cosmo = cosmology or get_cosmology()
+    if "redshift" in parameters:
+        return parameters["redshift"]
+    if "luminosity_distance" in parameters:
+        return cosmo.redshift_at_dl(parameters["luminosity_distance"])
+    return torch.zeros_like(next(iter(parameters.values())))
 
 
 def distance_modulus(d_lum_mpc):

@@ -1,7 +1,8 @@
 """Injection files and forward synthesis of photometry.
 
-Port of the json and plain-cadence parts of ``nmma_tpu/injections.py``
-(the reference's bilby-style injection files, ``nmma/core/utils.py:84-96``,
+Port of the json, LIGO-LW xml and plain-cadence parts of
+``nmma_tpu/injections.py`` (the reference's bilby-style injection files,
+``nmma/core/utils.py:84-96``,
 and ``create_light_curve_data``, ``nmma/em/lightcurve_generation.py
 :816-917``): the detector-frame model light curve at the injection, Gaussian
 noise from ``np.random.default_rng(seed)`` drawn in the JAX package's order
@@ -19,14 +20,16 @@ import torch
 from . import resolve_device
 
 
-def read_injection_file(path):
-    """Injection json (bilby dataframe format) -> dict of parameter
-    arrays."""
+def read_injection_file(path, reference_frequency=20.0):
+    """Injection file -> dict of parameter arrays: json in the bilby
+    dataframe format, or a LIGO-LW sim_inspiral table (.xml, .xml.gz;
+    the reference's file_to_dataframe, nmma/joint/injection_handling.py
+    :361-418) read with the standard library."""
     path = str(path)
     if path.endswith((".xml", ".xml.gz")):
-        raise NotImplementedError(
-            "LIGO-LW xml injections need io/ligolw.py, which nmma_tpu_torch "
-            "does not have yet (ROADMAP item 17)")
+        from .io.ligolw import sim_inspiral_to_injections
+        return sim_inspiral_to_injections(
+            path, reference_frequency=reference_frequency)
     with open(path) as f:
         data = json.load(f)
     content = data["injections"]["content"] if "injections" in data else data

@@ -34,13 +34,22 @@ print("imported", len(names), "modules and", len(scripts),
 new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.models.supernova", "nmma_tpu_torch.models.shock_cooling",
        "nmma_tpu_torch.likelihood.bolometric", "nmma_tpu_torch.em_detectors",
-       "nmma_tpu_torch.post_processing.parity"}
+       "nmma_tpu_torch.post_processing.parity",
+       "nmma_tpu_torch.gw", "nmma_tpu_torch.gw.waveforms",
+       "nmma_tpu_torch.gw.detectors", "nmma_tpu_torch.gw.phenomd",
+       "nmma_tpu_torch.gw.likelihood", "nmma_tpu_torch.gw.relative_binning",
+       "nmma_tpu_torch.gw.roq", "nmma_tpu_torch.gw.multibanding",
+       "nmma_tpu_torch.gw.fiducial", "nmma_tpu_torch.gw.strain",
+       "nmma_tpu_torch.gw.gwf", "nmma_tpu_torch.gw.fetch",
+       "nmma_tpu_torch.joint", "nmma_tpu_torch.joint.likelihood",
+       "nmma_tpu_torch.conversion", "nmma_tpu_torch.io.ligolw",
+       "nmma_tpu_torch.cli.joint_main"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
-from nmma_tpu_torch.cli import lightcurve_analysis
+from nmma_tpu_torch.cli import joint_main, lightcurve_analysis
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
@@ -57,6 +66,10 @@ ENTRY_POINTS = {
     "EnsembleMCMC": lambda: EnsembleMCMC(lambda u: u[:, 0], 2),
     "cli.lightcurve_analysis.lbol_main": lambda: lightcurve_analysis.lbol_main(
         ["--model", "Arnett"]),
+    "cli.joint_main.nmma_generation": lambda: joint_main.nmma_generation(
+        ["--prior-file", "never-read.prior"]),
+    "cli.joint_main.nmma_analysis": lambda: joint_main.nmma_analysis(
+        ["--data-dump", "never-read.pickle"]),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():
