@@ -14,8 +14,10 @@ JAX package's full resolution (48 rings x 16 phi nodes, 256 radii, stage 2
 on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
 through K2 and K3; then TrPi2018's energy ramp through K3's per-row mode,
 config 3's posterior against the JAX package's, the ensemble MCMC, the
-supernova, shock-cooling, spectral and bolometric paths, and GW-only BNS
-inference through nmma-generation / nmma-analysis (no kernel):
+supernova, shock-cooling, spectral and bolometric paths, GW-only BNS
+inference through nmma-generation / nmma-analysis (no kernel), and joint
+GW + EM + EOS inference (BASELINE config 5: the sparse Bu2019lm surrogate,
+P=2, H=128, through K1, and EOS tables the port's TOV solver makes):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -175,6 +177,41 @@ inference through nmma-generation / nmma-analysis (no kernel):
               phase, iterations, logZ, seconds, and the injection inside
               the 90% intervals of chirp_mass, mass_ratio and
               luminosity_distance.
+ 26. k1_sparse
+              (phases 26-30 run after phase 20, before phase 21)
+              K1 built for P = 2 against its plain version on the sparse
+              surrogate's operands at config 5's grid (Q = 100), B = 1,
+              128, 8199 at F = 9 (every trained filter, what the joint
+              path's model evaluates) and F = 2 (ztfg, ztfr): <= 1e-4 mag,
+              one launch a call; ms and bound at B = 8192 and 128, the
+              plain version's ms; a P the kernel was not built for refused
+              before any launch; [ptxas] per template instance.
+ 27. eos    the port's TOV solver builds config 5's EOS family on the card
+              (10 NEP tables on a numpy crust, 64 central pressures each,
+              one RK4 loop) and writes the macro files; M and R against
+              the CPU within 1e-5, Lambda within 5e-3 from 1 Msun; each
+              table's M_TOV; load_macro_eos_set and the TabulatedEOSSet
+              step at B = 8192.
+ 28. joint_logl
+              nmma_generation of config 5 at full width on those files,
+              then the joint likelihood (relative-binning GW + EM through
+              K1 + the tabulated EOS) at B = 8192 and the sampler's 256
+              ([joint_profile]): one K1 launch a call and no K2/K3,
+              evals/s, launches, idle share, peak memory; the card against
+              the port on the CPU at B = 256 within the GW gate of the GW
+              term plus the EM gate of the EM term, identical sentinels.
+ 29. joint_reweight
+              one generation with --eos-reweight and a lower-MTOV
+              constraint: the sorted directory, ascending weights summing
+              to 1, a finite test logL.
+ 30. joint_cli
+              nmma_generation and nmma_analysis to convergence
+              (nlive=1024, n_delete=256, walks=16, dlogz=0.1, cap 600):
+              K1 launches 3 + iterations x walks (the injection's light
+              curve, the test logL, the initial live set, one batch a walk
+              step), no K2/K3; logZ, seconds; the injection inside the 90%
+              intervals of chirp_mass, mass_ratio, luminosity_distance and
+              EOS_index.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -498,6 +535,20 @@ def ptxas_summary(report):
             "spill_load_bytes": "/".join(f[2] for f in frames)}
 
 
+def ptxas_entries(report):
+    """{entry: registers/stack/spills} for each kernel entry of nvcc's
+    -Xptxas -v output, the entry named by its template arguments (K1's
+    ``svd_mlp_mags_kernel<P, R, LP>`` as ``P4_R6_LP32``)."""
+    out = {}
+    for chunk in report.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'(\S+)'", chunk).group(1)
+        args = re.findall(r"Li(\d+)E", name)
+        key = ("P{}_R{}_LP{}".format(*args) if len(args) == 3
+               else name)
+        out[key] = ptxas_summary(chunk)
+    return out
+
+
 def relative_error(torch, got, want):
     """Max |got - want| / |want| where |want| > 1e-6 max|want|."""
     scale = float(want.abs().max())
@@ -551,6 +602,18 @@ def throughput(torch, fn, rounds=5, round_s=0.4, warmup=3):
     return 1e3 * seconds / calls, calls, per_round
 
 
+# torch.profiler keeps only the device records inside the window it opened
+# on the host's clock, and on its timeline the card's kernels sit up to ~3
+# ms off the host's launch calls (scripts/torch_profiler_window.py); late
+# in the process a short window without margins kept none of its launches:
+# the host idles this long at both ends of every window.
+PROFILE_MARGIN_S = 0.05
+# A window with the margins has still kept none of 20 launches, for a cause
+# not yet found: kernel_device_windows traces up to this many windows, and
+# each reading is printed with the number it took.
+PROFILE_WINDOWS = 3
+
+
 def device_profile(torch, fn, kernel=None):
     """(device-busy ms, kernel launches, top kernels, device ms of the
     kernels whose name contains ``kernel``, their launches) of one ``fn()``
@@ -559,8 +622,11 @@ def device_profile(torch, fn, kernel=None):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
@@ -572,21 +638,30 @@ def device_profile(torch, fn, kernel=None):
         sum(e.count for e in named)
 
 
-def kernel_device_ms(torch, fn, kernel, calls=20, warmup=3):
-    """Device ms of one launch of the kernels whose name contains
-    ``kernel``, from torch.profiler over ``calls`` calls of ``fn`` after
-    warm-up: at the samplers' small batches the host launches slower than
-    the card runs the kernel, so CUDA events would time the host's gaps."""
+def kernel_device_windows(torch, fn, kernel, calls=20, warmup=3):
+    """(device ms of one launch of the kernels whose name contains
+    ``kernel``, windows traced), from torch.profiler over ``calls`` calls
+    of ``fn`` after warm-up: at the samplers' small batches the host
+    launches slower than the card runs the kernel, so CUDA events would
+    time the host's gaps. A window in which the tracer kept no launch is
+    traced again, up to PROFILE_WINDOWS windows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    named_ms, count = device_profile(
-        torch, lambda: [fn() for _ in range(calls)], kernel)[3:]
-    # the tracer may drop a record: average over the launches it saw
-    if not 0 < count <= calls:
-        raise RuntimeError(f"the profiler saw {count} launches of {kernel} "
-                           f"in {calls} calls")
-    return named_ms / count
+    for window in range(1, PROFILE_WINDOWS + 1):
+        named_ms, count = device_profile(
+            torch, lambda: [fn() for _ in range(calls)], kernel)[3:]
+        # the tracer may drop a record: average over the launches it kept
+        if 0 < count <= calls:
+            return named_ms / count, window
+    raise RuntimeError(f"the profiler saw {count} launches of {kernel} in "
+                       f"{calls} calls, in each of {PROFILE_WINDOWS} windows")
+
+
+def kernel_device_ms(torch, fn, kernel, calls=20, warmup=3):
+    """The ms of ``kernel_device_windows`` alone (scripts/compare_kernels.py
+    reads it)."""
+    return kernel_device_windows(torch, fn, kernel, calls, warmup)[0]
 
 
 def synthetic_photometry(np, torch, model, filters, path, injection,
@@ -684,11 +759,12 @@ def me2017_path(np, torch, gen, sample_times):
             else "bytes"
 
     ops = k2.me2017_operands(*draw(SAMPLER_BATCH), sample_times)
-    k2_ms_small = kernel_device_ms(
+    k2_ms_small, windows = kernel_device_windows(
         torch, lambda: k2.me2017_dynamics_from_operands(*ops),
         "me2017_dynamics_kernel")
     say("k2", batch=SAMPLER_BATCH, kernel_ms=f"{k2_ms_small:.4f}",
-        timed_by="profiler", bound_ms=f"{bound(ops, SAMPLER_BATCH)[2]:.4f}")
+        timed_by="profiler", profiled_windows=windows,
+        bound_ms=f"{bound(ops, SAMPLER_BATCH)[2]:.4f}")
     ops = k2.me2017_operands(*draw(BATCH), sample_times)
     k2_ms = time_ms(torch, lambda: k2.me2017_dynamics_from_operands(*ops))
     k2_plain_ms = time_ms(torch, lambda: k2.me2017_dynamics_plain(*ops))
@@ -2406,6 +2482,452 @@ def gw_path(np, torch):
     gw_cli(np, torch)
 
 
+# ---------------------------------------------------------------------------
+# the joint GW + EM + EOS path (BASELINE config 5)
+# ---------------------------------------------------------------------------
+SPARSE_ARTIFACT = os.path.join(HERE, "artifacts", "Bu2019lm_sparse_svd.npz")
+SPARSE_MODEL = "Bu2019lm_sparse"
+# config 5's EM grid: DetectorLightCurveModel's sample_times of
+# build_joint_likelihood, geomspace(--em-tmin, --em-tmax, 100)
+JOINT_SAMPLE_TIMES = (0.1, 14.0, 100)
+JOINT_FILTERS = ("ztfg", "ztfr")
+
+
+def k1_bound(n_b, n_f, p, h, c, q):
+    """(flop, bytes, bound ms, bound_by) of one K1 call: each input read
+    once, the output written once, 2 FLOP an FMA."""
+    flops = 2.0 * n_b * n_f * (p * h + h * c + c * q)
+    n_bytes = 4.0 * (n_b * p + n_f * (p * h + h + h * c + c + c * q + q)
+                     + n_b * n_f * q)
+    return (flops, n_bytes) + roofline_ms(flops, n_bytes)
+
+
+def k1_sparse(np, torch, gen):
+    """[k1_sparse]: K1 built for P = 2 on the sparse Bu2019lm (H = 128) at
+    config 5's grid, against its plain version at B = 1, 128, 8199 and F =
+    9 (every trained filter, what the joint path's model evaluates) and F =
+    2 (ztfg, ztfr); one launch a call; its time at B = 8192 and 128 beside
+    its bound and the plain version's; a P that was not built refused
+    before any launch. Returns the fields of K1's kernel-line entry."""
+    from nmma_tpu_torch.models import SVDModelData
+    from nmma_tpu_torch.ops import svd_kernel
+
+    svd = SVDModelData.load(SPARSE_ARTIFACT, device=DEVICE)
+    t_days = torch.tensor(np.geomspace(*JOINT_SAMPLE_TIMES),
+                          dtype=torch.float32, device=DEVICE)
+    va_q, off_q, _ = svd.operator_rankc(t_days)
+    full = (svd.w1, svd.b1, svd.w2, svd.b2, va_q, off_q)
+    pick = torch.tensor([svd.filters.index(f) for f in JOINT_FILTERS],
+                        device=DEVICE)
+    two = tuple(a[pick].contiguous() for a in full)
+    _, p, h = svd.w1.shape
+    c, q = svd.w2.shape[2], va_q.shape[2]
+    if (p, h, c) != (2, 128, 10):
+        raise RuntimeError(f"the sparse surrogate is P={p}, H={h}, C={c}")
+    fields, max_err = {}, 0.0
+    for n_f, weights in ((svd.w1.shape[0], full), (len(JOINT_FILTERS), two)):
+        for b in (1, 128, BATCH + 7):
+            x = torch.rand((b, p), generator=gen, device=DEVICE)
+            before = svd_kernel.LAUNCHES
+            got = svd_kernel.svd_surrogate_mags(x, *weights)
+            launched = svd_kernel.LAUNCHES - before
+            want = svd_kernel.svd_surrogate_mags_plain(x, *weights)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if got.shape != want.shape or launched != 1 \
+                    or not math.isfinite(err) or err > K1_TOL:
+                raise RuntimeError(
+                    f"K1 (P=2) at B={b}, F={n_f}: max abs err {err} "
+                    f"(tolerance {K1_TOL} mag), {launched} launches")
+            max_err = max(max_err, err)
+            say("k1_sparse", batch=b, filters=n_f, launches=launched,
+                max_abs_err=f"{err:.3e}")
+        x = torch.rand((SAMPLER_BATCH, p), generator=gen, device=DEVICE)
+        ms_small, windows = kernel_device_windows(
+            torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights),
+            "svd_mlp_mags_kernel")
+        x = torch.rand((BATCH, p), generator=gen, device=DEVICE)
+        ms = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights))
+        plain = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags_plain(
+            x, *weights))
+        flops, n_bytes, bound, bound_by = k1_bound(BATCH, n_f, p, h, c, q)
+        small_bound = k1_bound(SAMPLER_BATCH, n_f, p, h, c, q)[2]
+        say("k1_sparse", batch=BATCH, filters=n_f, p=p, h=h, c=c, q=q,
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            bound_share=f"{bound / ms:.4f}", gflop=f"{flops / 1e9:.4f}",
+            mbytes=f"{n_bytes / 1e6:.4f}",
+            kernel_ms_b128=f"{ms_small:.4f}", timed_by_b128="profiler",
+            profiled_windows_b128=windows, bound_ms_b128=f"{small_bound:.4f}")
+        tag = f"sparse_f{n_f}"
+        fields.update({f"{tag}_ms": ms, f"{tag}_ms_sampler_batch": ms_small,
+                       f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
+                       f"{tag}_bound_by": bound_by})
+    # a P the kernel was not built for: refused before any launch
+    before = svd_kernel.LAUNCHES
+    w1_3 = torch.zeros((2, 3, h), device=DEVICE)
+    try:
+        svd_kernel.svd_surrogate_mags(
+            torch.zeros((4, 3), device=DEVICE), w1_3, *two[1:])
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise RuntimeError("K1 took P=3, which it was not built for")
+    if svd_kernel.LAUNCHES != before:
+        raise RuntimeError("K1 launched for a P it was not built for")
+    from nmma_tpu_torch import _kernels
+    for entry, summary in ptxas_entries(
+            _kernels.REPORTS.get("svd_mlp", "")).items():
+        say("ptxas", library="svd_mlp", entry=entry, **summary)
+    say("k1_sparse", refused_p3=repr(refused), max_abs_err=f"{max_err:.3e}",
+        built_p=",".join(map(str, svd_kernel.KERNEL_PS)))
+    fields["sparse_max_abs_err"] = max_err
+    return fields
+
+
+# config 5 (scripts/bench_joint_pe.py:21-52): its injection and prior; the
+# EOS set is made here (the reference's eos_macro directory is not in the
+# repo), from a numpy crust under NEP cores of these symmetry-energy slopes
+JOINT_INJECTION = {
+    "chirp_mass": 1.1977, "mass_ratio": 0.9, "luminosity_distance": 40.0,
+    "EOS": 4.2, "ratio_zeta": 0.3, "alpha": 5e-5, "theta_jn": 0.4,
+    "phase": 1.3, "psi": 1.5, "ra": 3.446, "dec": -0.408,
+    "geocent_time": 0.0, "timeshift": 0.0}
+JOINT_PRIOR_TEXT = """\
+chirp_mass = Uniform(minimum=1.18, maximum=1.21)
+mass_ratio = Uniform(minimum=0.6, maximum=1.0)
+luminosity_distance = Uniform(minimum=10., maximum=100.)
+EOS = Uniform(minimum=0., maximum=10.)
+ratio_zeta = Uniform(minimum=0., maximum=0.5)
+alpha = 5e-5
+theta_jn = 0.4
+phase = 1.3
+psi = 1.5
+ra = 3.446
+dec = -0.408
+geocent_time = 0.0
+timeshift = 0.0
+"""
+EOS_SLOPES = tuple(40.0 + 50.0 * i / 9 for i in range(10))   # L [MeV]
+# the EOS family card against CPU: M and R relative on the stable branch;
+# k2 and so Lambda from 1.0 Msun, where f32 k2 loses ~C^-4 ulps to the
+# cancellation in its denominator (tests/test_torch_eos.py)
+EOS_MR_RTOL, EOS_LAMBDA_RTOL, EOS_LAMBDA_FROM = 1e-5, 5e-3, 1.0
+# [joint_cli]: bench_joint_pe.py's nlive=1024, walks=16 and dlogz=0.1;
+# n_delete a quarter of the live set as [gw_cli] takes it (the default is
+# an eighth), and an iteration cap
+JOINT_CLI_NLIVE, JOINT_CLI_NDELETE, JOINT_CLI_WALKS = 1024, 256, 16
+JOINT_CLI_CAP = 600
+
+
+def crust_table(np, n_rows=120, n_max=0.0999, p_top=0.3, gamma=4.0 / 3.0):
+    """(n [fm^-3], p, eps [MeV fm^-3]) rows of a polytropic crust below the
+    NEP core's 0.1 fm^-3. A copy of tests/test_torch_eos.py:crust_table
+    (which imports JAX, so the smoke cannot import it): keep the two in
+    step, so that the smoke and the tests build the same EOS family."""
+    n = np.geomspace(1e-8, n_max, n_rows)
+    p = p_top * (n / 0.1) ** gamma
+    return np.column_stack([n, p, n * 939.565 + p / (gamma - 1.0)])
+
+
+def eos_path(np, torch, gen, tmp):
+    """[eos]: the port's TOV solver builds the EOS family of config 5 on
+    the card (10 NEP tables on the numpy crust, 64 central pressures each,
+    all in one RK4 loop), held against the same call on the CPU, and writes
+    the macro files; then load_macro_eos_set and the TabulatedEOSSet step
+    at B = BATCH. Returns the macro directory."""
+    from nmma_tpu_torch.eos import (construct_families, load_macro_eos_set,
+                                    nep_eos_table)
+
+    tables = [nep_eos_table(32.0, slope, crust_table(np))
+              for slope in EOS_SLOPES]
+    t0 = time.time()
+    card = construct_families(tables, device=DEVICE)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = construct_families(tables, device="cpu")
+    cpu_s = time.time() - t0
+    eos_dir = os.path.join(tmp, "eos")
+    os.makedirs(eos_dir)
+    worst = {"m": 0.0, "r": 0.0, "lambda": 0.0}
+    for i, ((r, m, lam, _), (r0, m0, lam0, _)) in enumerate(zip(card, cpu)):
+        r, m, lam = (a.cpu().numpy() for a in (r, m, lam))
+        r0, m0, lam0 = (a.numpy() for a in (r0, m0, lam0))
+        stable = slice(0, int(np.argmax(m0)) + 1)
+        heavy = m0[stable] >= EOS_LAMBDA_FROM
+        errs = {"m": np.abs(m / m0 - 1)[stable].max(),
+                "r": np.abs(r / r0 - 1)[stable].max(),
+                "lambda": np.abs(lam / lam0 - 1)[stable][heavy].max()}
+        worst = {k: max(worst[k], float(v)) for k, v in errs.items()}
+        np.savetxt(os.path.join(eos_dir, f"{i}.dat"),
+                   np.column_stack([r, m, lam]))
+    if not (worst["m"] <= EOS_MR_RTOL and worst["r"] <= EOS_MR_RTOL
+            and worst["lambda"] <= EOS_LAMBDA_RTOL):
+        raise RuntimeError(f"the EOS family on the card against the CPU: "
+                           f"{worst}")
+    t0 = time.time()
+    eos_set = load_macro_eos_set(eos_dir)
+    load_ms = 1e3 * (time.time() - t0)
+    if not 2.0 < float(eos_set.tov_mass.min()) <= \
+            float(eos_set.tov_mass.max()) < 2.5:
+        raise RuntimeError(f"TOV masses {eos_set.tov_mass}")
+    u = torch.rand((3, BATCH), generator=gen, device=DEVICE)
+    params = {"EOS": 10.0 * u[0], "mass_1_source": 1.0 + 1.5 * u[1],
+              "mass_2_source": 1.0 + 0.6 * u[2]}
+    out = eos_set(params)
+    if not (torch.isfinite(out["radius_1"]).all()
+            and bool((out["radius_1"] == 0).any())):
+        raise RuntimeError("the TabulatedEOSSet step lost its BH rows")
+    step_ms = time_ms(torch, lambda: eos_set(params))
+    say("eos", tables=len(tables), central_pressures=64,
+        card_s=f"{card_s:.3f}", cpu_s=f"{cpu_s:.3f}",
+        tov_mass=",".join(f"{m:.4f}" for m in eos_set.tov_mass),
+        max_rel_m=f"{worst['m']:.3e}", max_rel_r=f"{worst['r']:.3e}",
+        max_rel_lambda_from_1msun=f"{worst['lambda']:.3e}",
+        load_macro_ms=f"{load_ms:.3f}", eos_step_ms=f"{step_ms:.4f}",
+        eos_step_batch=BATCH)
+    return eos_dir
+
+
+def joint_files(tmp):
+    from nmma_tpu_torch.injections import write_injection_file
+
+    prior = os.path.join(tmp, "config5.prior")
+    with open(prior, "w") as f:
+        f.write(JOINT_PRIOR_TEXT)
+    injection = os.path.join(tmp, "config5.json")
+    write_injection_file(injection, {k: [v] for k, v in
+                                     JOINT_INJECTION.items()})
+    return prior, injection
+
+
+def joint_generation_args(tmp, label, eos_dir):
+    """nmma-generation flags of config 5 (bench_joint_pe.py:47-52)."""
+    prior, injection = joint_files(tmp)
+    return gw_generation_args(tmp, label) + [
+        "--prior-file", prior, "--injection-file", injection,
+        "--eos-data", eos_dir, "--em-model", SPARSE_MODEL,
+        "--svd-path", SPARSE_ARTIFACT]
+
+
+def joint_gate(torch, likelihood, params, got, want, data_power):
+    """Sentinels identical and |got - want| within the GW gate of the GW
+    term plus the EM gate of the EM term (the card's terms); returns (max
+    |dlogL|, largest share of the gate used)."""
+    if not torch.equal(got > -1e29, want > -1e29):
+        raise RuntimeError("joint logL sentinel positions differ")
+    with torch.no_grad():
+        conv = likelihood.conversion(params)
+        gw = likelihood.likelihoods[0](conv).cpu()
+        em = likelihood.likelihoods[1](conv).cpu()
+    ok = want > -1e29
+    d = (got - want)[ok].abs()
+    allowed = (LOGL_ATOL + LOGL_RTOL * gw[ok].abs()
+               + GW_PHASE_ULP * data_power) \
+        + (LOGL_ATOL + LOGL_RTOL * em[ok].abs())
+    share = float((d / allowed).max())
+    if share > 1.0:
+        raise RuntimeError(f"joint logL off by {float(d.max())} (gate "
+                           f"share {share:.3f})")
+    return float(d.max()), share
+
+
+def joint_logl(np, torch, gen, tmp, eos_dir):
+    """[joint_logl]: config 5's joint likelihood (GW relative binning + the
+    sparse Bu2019lm through K1 + the tabulated EOS) of a full-width dump at
+    B = BATCH and the sampler's B: evals/s, launches, idle share, peak
+    memory, one K1 launch a call and no K2/K3; the card against the port
+    on the CPU at the sampler's B (the GW gate plus the EM gate)."""
+    import pickle
+
+    from nmma_tpu_torch.cli.joint_main import (build_joint_likelihood,
+                                               nmma_generation, unit_cube_logl)
+    from nmma_tpu_torch.gw import GWTransientLikelihood, get_waveform
+
+    t0 = time.time()
+    path = nmma_generation(joint_generation_args(tmp, "joint_logl",
+                                                 eos_dir))
+    gen_s = time.time() - t0
+    with open(path, "rb") as f:
+        dump = pickle.load(f)
+    likelihood, priors = build_joint_likelihood(dump, device=DEVICE)
+    names = [type(t).__name__ for t in likelihood.likelihoods]
+    if names != ["RelativeBinningGWLikelihood", "EMLikelihood"]:
+        raise RuntimeError(f"config 5's likelihood terms: {names}")
+    logl_fn = unit_cube_logl(likelihood, priors)
+    u = priors.sample_units(gen, BATCH)
+    logl_fn(u[:JOINT_CLI_NDELETE])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    launches = {}
+    for b in (BATCH, JOINT_CLI_NDELETE):
+        reset_launches()
+        logl = logl_fn(u[:b])
+        torch.cuda.synchronize()
+        launches[b] = kernel_launches()
+        if launches[b] != (1, 0, 0):
+            raise RuntimeError(f"the joint logL at B={b} launched K1-K3 "
+                               f"{launches[b]}, not (1, 0, 0)")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    logl = logl_fn(u)
+    if logl.shape != (BATCH,) or torch.isnan(logl).any():
+        raise RuntimeError(f"bad joint logL {logl.shape}")
+    finite_share = float((logl > -1e29).float().mean())
+    if finite_share < 0.9:
+        raise RuntimeError(f"only {finite_share} of the joint logL finite")
+    logl_ms, calls, round_ms = throughput(torch, lambda: logl_fn(u))
+    for b in (BATCH, JOINT_CLI_NDELETE):
+        ms = logl_ms if b == BATCH else throughput(
+            torch, lambda: logl_fn(u[:b]))[0]
+        busy, n_launch, top, k1_ms, k1_n = device_profile(
+            torch, lambda: logl_fn(u[:b]), "svd_mlp_mags_kernel")
+        say("joint_profile", batch=b, wall_ms=f"{ms:.4f}",
+            evals_per_s=f"{b / (ms / 1e3):.1f}",
+            device_busy_ms=f"{busy:.4f}", idle_share=f"{1.0 - busy / ms:.4f}",
+            kernel_launches=n_launch, k1_device_ms=f"{k1_ms:.4f}",
+            k1_launches=k1_n, top=top)
+
+    # <d,d> of the zero-noise data: the optimal SNR^2 at the injection
+    fid = dump["fiducial"]
+    dense = GWTransientLikelihood(dump["ifos"], waveform=get_waveform(
+        GW_WAVEFORM), trigger_time=GW_TRIGGER, device=DEVICE)
+    with torch.no_grad():
+        snr = float(dense.optimal_snr({k: torch.tensor(
+            [v], device=DEVICE) for k, v in fid.items()})[0])
+    cpu_lk, cpu_priors = build_joint_likelihood(dump, device="cpu")
+    u_small = u[:JOINT_CLI_NDELETE]
+    got = logl_fn(u_small).cpu()
+    want = unit_cube_logl(cpu_lk, cpu_priors)(u_small.cpu())
+    with torch.no_grad():
+        params = priors.transform(u_small)
+    max_d, share = joint_gate(torch, likelihood, params, got, want, snr**2)
+    say("joint_logl", batch=BATCH, generation_s=f"{gen_s:.2f}",
+        terms=",".join(names), finite_share=f"{finite_share:.4f}",
+        calls=calls, wall_ms=f"{logl_ms:.4f}",
+        evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+        evals_per_s_rounds=",".join(f"{BATCH / (ms / 1e3):.1f}"
+                                    for ms in round_ms),
+        k1_k2_k3_launches_a_call=",".join(map(str, launches[BATCH])),
+        peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+        snr=f"{snr:.4f}", cpu_batch=JOINT_CLI_NDELETE,
+        max_abs_dlogl_vs_cpu=f"{max_d:.4e}", gate_share=f"{share:.4f}")
+
+
+def joint_cli(np, torch, eos_dir):
+    """[joint_cli]: config 5 through nmma_generation and nmma_analysis in
+    process to convergence: K1 launches exactly 2 + 1 + iterations x walks
+    (the injection's light curve and the test logL of the generation, the
+    initial live set, one batch a walk step), no K2/K3; logZ, seconds, and
+    the injection inside the 90% intervals of chirp_mass, mass_ratio and
+    luminosity_distance, its EOS index inside that of EOS_index. Returns
+    the run's K1 launches."""
+    import json as _json
+
+    from nmma_tpu_torch.cli.joint_main import nmma_analysis, nmma_generation
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_cli_") as tmp:
+        outdir = os.path.join(tmp, "outdir")
+        reset_launches()
+        t0 = time.time()
+        dump = nmma_generation(joint_generation_args(tmp, "joint_cli",
+                                                     eos_dir))
+        gen_s = time.time() - t0
+        with open(os.path.join(outdir, "joint_cli_generation_meta.json")) \
+                as f:
+            meta = _json.load(f)
+        result = nmma_analysis([
+            "--data-dump", dump, "--outdir", outdir, "--label", "joint_cli",
+            "--nlive", str(JOINT_CLI_NLIVE),
+            "--n-delete", str(JOINT_CLI_NDELETE),
+            "--walks", str(JOINT_CLI_WALKS), "--dlogz", "0.1",
+            "--max-iter", str(JOINT_CLI_CAP)])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = kernel_launches()
+        post = np.load(os.path.join(outdir, "joint_cli_result.npz"))
+        truth = {"chirp_mass": JOINT_INJECTION["chirp_mass"],
+                 "mass_ratio": JOINT_INJECTION["mass_ratio"],
+                 "luminosity_distance":
+                     JOINT_INJECTION["luminosity_distance"],
+                 "EOS_index": math.floor(JOINT_INJECTION["EOS"])}
+        intervals = {k: np.quantile(post[f"posterior_{k}"], [0.05, 0.95])
+                     for k in truth}
+    expected = 3 + result.niter * JOINT_CLI_WALKS
+    if result.niter >= JOINT_CLI_CAP or not math.isfinite(result.logz) or \
+            launches != (expected, 0, 0):
+        raise RuntimeError(f"the joint CLI run: {result.niter} iterations "
+                           f"(cap {JOINT_CLI_CAP}), logZ {result.logz}, "
+                           f"K1-K3 {launches}, K1 expected {expected}")
+    outside = {k: (float(lo), float(hi)) for k, (lo, hi) in intervals.items()
+               if not lo <= truth[k] <= hi}
+    say("joint_cli", logz=f"{result.logz:.4f}",
+        logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+        cap=JOINT_CLI_CAP, nlive=JOINT_CLI_NLIVE, n_delete=JOINT_CLI_NDELETE,
+        walks=JOINT_CLI_WALKS, likelihood_evals=result.ncall,
+        seconds=f"{seconds:.2f}", generation_s=f"{gen_s:.2f}",
+        k1_launches=launches[0],
+        k1_expected=f"3+{result.niter}x{JOINT_CLI_WALKS}",
+        generation_phases_s=",".join(f"{k}={v}" for k, v in
+                                     meta["timings_s"].items()),
+        test_logl=f"{meta['test_logl']:.4f}", **{
+            f"{k}_90": f"{lo:.5f}..{hi:.5f}"
+            for k, (lo, hi) in intervals.items()},
+        truth=",".join(f"{k}={v}" for k, v in truth.items()))
+    if outside:
+        raise RuntimeError(f"the injection lies outside the 90% intervals "
+                           f"{outside}")
+    return launches[0]
+
+
+def joint_reweight(np, torch, tmp, eos_dir):
+    """[joint_reweight]: one config-5 generation with --eos-reweight and a
+    lower-MTOV constraint: the sorted directory and weights, and a finite
+    test logL."""
+    import json as _json
+    import pickle
+
+    from nmma_tpu_torch.cli.joint_main import nmma_generation
+
+    t0 = time.time()
+    path = nmma_generation(joint_generation_args(tmp, "joint_reweight",
+                                                 eos_dir)
+                           + ["--eos-reweight", "--lower-mtov", "2.1,0.05"])
+    seconds = time.time() - t0
+    with open(path, "rb") as f:
+        dump = pickle.load(f)
+    with open(os.path.join(tmp, "outdir",
+                           "joint_reweight_generation_meta.json")) as f:
+        meta = _json.load(f)
+    weights = np.loadtxt(dump["eos_weights"])
+    files = sorted(os.listdir(dump["eos_data"]))
+    if len(files) != len(EOS_SLOPES) or len(weights) != len(files) or \
+            not np.all(np.diff(weights) >= 0) or \
+            abs(weights.sum() - 1.0) > 1e-9 or dump["eos_constraints"] or \
+            not math.isfinite(meta["test_logl"]):
+        raise RuntimeError(f"the reweighting wrote {files}, weights "
+                           f"{weights}, test logL {meta['test_logl']}")
+    say("joint_reweight", seconds=f"{seconds:.2f}", sorted_files=len(files),
+        weights=",".join(f"{w:.4g}" for w in weights),
+        test_logl=f"{meta['test_logl']:.4f}")
+
+
+def joint_path(np, torch):
+    """The joint GW + EM + EOS path of config 5: [k1_sparse], [eos],
+    [joint_logl], [joint_reweight], [joint_cli]. Returns K1's fields for
+    the kernel line."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    fields = k1_sparse(np, torch, gen)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
+        eos_dir = eos_path(np, torch, gen, tmp)
+        joint_logl(np, torch, gen, tmp, eos_dir)
+        joint_reweight(np, torch, tmp, eos_dir)
+        fields["launches_joint_cli"] = joint_cli(np, torch, eos_dir)
+    return fields
+
+
 def main() -> int:
     import torch
 
@@ -2468,27 +2990,20 @@ def main() -> int:
         say("k1", batch=b, max_abs_err=f"{err:.3e}")
     n_f, p, h = svd.w1.shape
     c, q = svd.w2.shape[2], va_q.shape[2]
-
-    def k1_bound(n_b):
-        flops = 2.0 * n_b * n_f * (p * h + h * c + c * q)
-        n_bytes = 4.0 * (n_b * p + n_f * (p * h + h + h * c + c + c * q + q)
-                         + n_b * n_f * q)
-        return flops, n_bytes, 1e3 * max(flops / PEAK_F32_FLOPS,
-                                         n_bytes / PEAK_BYTES), \
-            "operations" if flops / PEAK_F32_FLOPS >= n_bytes / PEAK_BYTES \
-            else "bytes"
+    dims = (n_f, p, h, c, q)
 
     x = torch.rand((SAMPLER_BATCH, p), generator=gen, device=DEVICE)
-    k1_ms_small = kernel_device_ms(
+    k1_ms_small, windows = kernel_device_windows(
         torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights),
         "svd_mlp_mags_kernel")
     say("k1", batch=SAMPLER_BATCH, kernel_ms=f"{k1_ms_small:.4f}",
-        timed_by="profiler", bound_ms=f"{k1_bound(SAMPLER_BATCH)[2]:.4f}")
+        timed_by="profiler", profiled_windows=windows,
+        bound_ms=f"{k1_bound(SAMPLER_BATCH, *dims)[2]:.4f}")
     x = torch.rand((BATCH, p), generator=gen, device=DEVICE)
     k1_ms = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags(x, *weights))
     plain_ms = time_ms(
         torch, lambda: svd_kernel.svd_surrogate_mags_plain(x, *weights))
-    flops, n_bytes, bound_ms, bound_by = k1_bound(BATCH)
+    flops, n_bytes, bound_ms, bound_by = k1_bound(BATCH, *dims)
     say("k1", batch=BATCH, kernel_ms=f"{k1_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, bound_share=f"{bound_ms / k1_ms:.4f}",
@@ -2606,6 +3121,7 @@ def main() -> int:
     mcmc_path(np, torch, cli_posterior)
     em_models(np, torch, gen)
     lbol_path(np, torch)
+    k1_joint = joint_path(np, torch)
     gw_path(np, torch)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
@@ -2615,6 +3131,7 @@ def main() -> int:
         "launches_cli": cli_launches, "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "ms_sampler_batch": k1_ms_small, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        **k1_joint,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

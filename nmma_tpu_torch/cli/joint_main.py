@@ -1,21 +1,23 @@
-"""``nmma-generation`` / ``nmma-analysis``: the two-stage pipeline, GW only.
+"""``nmma-generation`` / ``nmma-analysis``: the two-stage joint pipeline.
 
-PyTorch counterpart of the GW-only branch of ``nmma_tpu/cli/joint_main.py``
-(the reference's ``nmma/joint/generation.py`` + ``nmma/joint/main.py``).
-The generation stage reads the prior and the injection (json or LIGO-LW
-xml), runs the conversion chain (cosmology -> source frame), makes the GW
-data (a zero-noise injection, or real strain read from files with a
-median-Welch PSD, a Tukey window and an FFT), finds the relative-binning
-fiducial (the injection, or a maximum-likelihood search), writes the data
-dump and evaluates the likelihood once. The analysis stage rebuilds the
-likelihood from the dump and runs the batched nested sampler; the result
+PyTorch counterpart of ``nmma_tpu/cli/joint_main.py`` (the reference's
+``nmma/joint/generation.py`` + ``nmma/joint/main.py``). The generation
+stage reads the prior and the injection (json or LIGO-LW xml), runs the
+conversion chain (cosmology -> source frame -> tabulated EOS or quasi-
+universal radii -> ejecta fits), makes the GW data (a zero-noise
+injection, or real strain read from files with a median-Welch PSD, a Tukey
+window and an FFT), finds the relative-binning fiducial (the injection, or
+a maximum-likelihood search), builds the EOS constraints (optionally
+folding them into a reweighted, sorted EOS set), loads or synthesises the
+EM photometry, writes the data dump and evaluates the joint likelihood
+once. The analysis stage rebuilds the likelihood from the dump (GW + EM +
+EOS constraints + NS population, with the Hubble, weighted-EOS and
+systematics prior surgery) and runs the batched nested sampler; the result
 ``.npz`` carries the posterior and the conversion chain's derived columns.
 
 Both stages run on the CUDA card and raise without one, unless ``--device
 cpu`` (or ``device="cpu"``) asks for the CPU. The dump is the port's own
 pickle (plain dicts, numpy arrays and the port's ``InterferometerData``).
-The EOS, EM, population and Hubble parts of the joint pipeline are ROADMAP
-item 16; their flags raise.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def _generation_parser():
     p.add_argument("--time-marginalization", action="store_true",
                    help="dense likelihood only (implies "
                         "--no-relative-binning)")
-    # --- EM (ROADMAP item 16) ---
+    # --- EM ---
     p.add_argument("--em-model", "--kilonova-model", dest="em_model",
                    default=None)
     p.add_argument("--svd-path", default=None)
@@ -87,7 +89,7 @@ def _generation_parser():
     p.add_argument("--em-tmax", dest="tmax", type=float, default=14.0)
     p.add_argument("--generation-seed", type=int, default=42)
     p.add_argument("--em-error-budget", type=float, default=1.0)
-    # --- EOS (ROADMAP item 16) ---
+    # --- EOS ---
     p.add_argument("--eos-data", "--eos-dir", dest="eos_data", default=None)
     p.add_argument("--eos-weights", default=None,
                    help="per-EOS prior weight file (one weight per line)")
@@ -102,7 +104,7 @@ def _generation_parser():
     p.add_argument("--eos-reweight", action="store_true",
                    help="pre-weight the tabulated EOS set under the "
                         "constraints (reference tabulate_weighted_eos)")
-    # --- population / cosmology (ROADMAP item 16) ---
+    # --- population / cosmology ---
     p.add_argument("--population-model", default=None,
                    help="NS mass population: flat | peak")
     p.add_argument("--population-beta", type=float, default=0.0)
@@ -112,26 +114,6 @@ def _generation_parser():
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card")
     return p
-
-
-# the flags of the joint path's EOS, EM, population and Hubble parts
-_JOINT_FLAGS = {
-    "eos_data": "--eos-data", "eos_weights": "--eos-weights",
-    "eos_reweight": "--eos-reweight", "lower_mtov": "--lower-mtov",
-    "upper_mtov": "--upper-mtov", "mass_radius_files": "--mass-radius-files",
-    "eos_constraint_json": "--eos-constraint-json", "em_model": "--em-model",
-    "light_curve_data": "--light-curve-data",
-    "population_model": "--population-model",
-    "hubble_prior": "--hubble-prior",
-}
-
-
-def _refuse_joint_flags(args):
-    for dest, flag in _JOINT_FLAGS.items():
-        if args.get(dest):
-            raise NotImplementedError(
-                f"{flag} belongs to the joint path with EOS and EM, which "
-                "nmma_tpu_torch does not have yet (ROADMAP item 16)")
 
 
 def _per_ifo(spec):
@@ -145,6 +127,58 @@ def _per_ifo(spec):
             raise ValueError(f"expected IFO:value, got {item!r}")
         out[name.strip()] = value.strip()
     return out
+
+
+def _parse_constraints(args):
+    """Constraint specs from the flags and the json (reference
+    compose_eos_constraints, nmma/eos/eos_likelihood.py:133-191)."""
+    specs = []
+    if args.lower_mtov:
+        m, e = (float(x) for x in args.lower_mtov.split(","))
+        specs.append({"type": "lower_mtov", "mass": m, "error": e})
+    if args.upper_mtov:
+        m, e = (float(x) for x in args.upper_mtov.split(","))
+        specs.append({"type": "upper_mtov", "mass": m, "error": e})
+    if args.mass_radius_files:
+        for path in args.mass_radius_files.split(","):
+            specs.append({"type": "mass_radius", "file": path})
+    if args.eos_constraint_json:
+        with open(args.eos_constraint_json) as f:
+            payload = json.load(f)
+        for name, spec in payload.items():
+            spec = dict(spec)
+            spec.setdefault("name", name)
+            specs.append(spec)
+    return specs
+
+
+def _build_constraint(specs):
+    """The specs' ``JointEoSConstraint``, or None without specs."""
+    from ..eos.likelihood import (JointEoSConstraint, LowerMTOVConstraint,
+                                  MassRadiusConstraint, UpperMTOVConstraint)
+    terms = []
+    for spec in specs:
+        kind = spec["type"].lower().replace("-", "_")
+        if kind in ("lower_mtov", "maximum_mass_lower", "lower_mtov_mass"):
+            terms.append(LowerMTOVConstraint(spec["mass"], spec["error"],
+                                             name=spec.get("name")))
+        elif kind in ("upper_mtov", "maximum_mass_upper"):
+            terms.append(UpperMTOVConstraint(spec["mass"], spec["error"],
+                                             name=spec.get("name")))
+        elif kind in ("mass_radius", "mr"):
+            terms.append(MassRadiusConstraint(file_path=spec["file"],
+                                              name=spec.get("name")))
+        else:
+            raise ValueError(f"unknown EOS constraint type {spec['type']!r}")
+    return JointEoSConstraint(*terms) if terms else None
+
+
+def _register_svd_model(args, device):
+    """Register ``--svd-path``'s surrogate as ``--em-model`` on
+    ``device``."""
+    from ..models import SVDModelData, make_svd_source_model
+    make_svd_source_model(args["em_model"],
+                          SVDModelData.load(args["svd_path"], device=device))
 
 
 def _scalars(parameters):
@@ -163,12 +197,11 @@ def nmma_generation(cli_args=None, device=None):
     overrides ``--device``."""
     config, argv = check_for_config(cli_args)
     args = apply_config(_generation_parser(), config, argv)
-    _refuse_joint_flags(vars(args))
     device = resolve_device(device if device is not None else args.device)
     args.device = str(device)
 
     from ..gw import get_waveform
-    from ..injections import read_injection_entry
+    from ..injections import create_light_curve_data, read_injection_entry
     from ..priors import load_prior_file
 
     os.makedirs(args.outdir, exist_ok=True)
@@ -248,11 +281,58 @@ def nmma_generation(cli_args=None, device=None):
         print(f"fiducial logL (time+phase marginalized): {fid_logl:.2f}")
     phase("fiducial")
 
+    # ---- EOS constraints, optionally folded into a reweighted EOS set ----
+    constraint_specs = _parse_constraints(args)
+    eos_payload = args.eos_data
+    eos_weights_file = args.eos_weights
+    if args.eos_reweight:
+        if not args.eos_data:
+            raise ValueError("--eos-reweight needs --eos-data")
+        from ..eos import load_macro_eos_set, tabulate_weighted_eos
+        constraint = _build_constraint(constraint_specs)
+        if constraint is None:
+            raise ValueError("--eos-reweight needs at least one constraint")
+        prev = np.loadtxt(eos_weights_file) if eos_weights_file else None
+        w_path, sorted_dir, n_kept, _ = tabulate_weighted_eos(
+            load_macro_eos_set(args.eos_data), constraint, args.outdir,
+            previous_weights=prev, device=device)
+        print(f"EOS reweighting: {n_kept} EOS kept -> {sorted_dir}")
+        eos_payload, eos_weights_file = sorted_dir, w_path
+        constraint_specs = []   # folded into the weights
+    phase("eos")
+
+    # ---- EM data: observed photometry or injection synthesis ----
+    em_data = None
+    filters = args.filters.split(",")
+    if args.light_curve_data:
+        from ..io import (cut_data_to_time_range, gps_to_mjd,
+                          load_em_observations, shift_to_trigger_time)
+        em_trigger = args.em_trigger_time
+        if em_trigger is None:
+            em_trigger = gps_to_mjd(args.trigger_time)
+        raw = cut_data_to_time_range(load_em_observations(
+            args.light_curve_data), em_trigger, tmin=0.0, tmax=args.tmax)
+        em_data = shift_to_trigger_time(raw, em_trigger)
+        if args.filters:
+            em_data = {f: em_data[f] for f in filters if f in em_data}
+    elif args.em_model and inj_scalar is not None:
+        if args.svd_path:
+            _register_svd_model(vars(args), device)
+        em_data = create_light_curve_data(
+            inj_scalar, model=args.em_model, filters=filters,
+            tmin=max(args.tmin, 0.3), tmax=min(args.tmax, 12.0),
+            n_tsteps=20, seed=args.generation_seed, device=device)
+    phase("em_data")
+
     dump = {
         "args": vars(args),
         "injection": injection,
         "fiducial": fiducial,
         "ifos": ifos,
+        "em_data": em_data,
+        "eos_data": eos_payload,
+        "eos_weights": eos_weights_file,
+        "eos_constraints": constraint_specs,
         "prior_file": args.prior_file,
         "trigger_time": args.trigger_time,
     }
@@ -291,39 +371,88 @@ def _fill_from_priors(point, priors, device):
 
 
 def _build_conversion(args, injection):
-    """The GW-only conversion chain: cosmology -> source frame. An EOS or
+    """The conversion chain: cosmology -> source frame, then for an EOS or
     EM run (EOS data, an EM model or light curve, or an injection with
-    ``EOS``/``ratio_zeta``) is the joint path of ROADMAP item 16."""
+    ``EOS``/``ratio_zeta``) the tabulated EOS set (or quasi-universal radii
+    without EOS data) and the ejecta fits."""
     from .. import conversion as C
     gw_only = (args.get("em_model") is None
                and args.get("light_curve_data") is None
-               and not args.get("eos_data")
                and (injection is None
                     or ("EOS" not in injection
                         and "ratio_zeta" not in injection)))
+    chain = [C.cosmology_to_distance, C.bns_source_frame]
+    if args.get("eos_data"):
+        from ..eos import load_macro_eos_set
+        weights = None
+        if args.get("eos_weights"):
+            weights = np.loadtxt(args["eos_weights"])
+        chain.append(load_macro_eos_set(args["eos_data"], weights=weights))
+    elif not gw_only:
+        chain.append(C.radii_from_qur)
     if not gw_only:
-        raise NotImplementedError(
-            "EOS and ejecta conversions belong to the joint path with EOS "
-            "and EM, which nmma_tpu_torch does not have yet (ROADMAP item 16)")
-    return C.MultimessengerConversion(C.cosmology_to_distance,
-                                      C.bns_source_frame)
+        # ejecta fitting needs EOS radii and disk-wind fractions; a pure-GW
+        # injection (e.g. from a sim_inspiral xml) skips it
+        chain.append(C.KilonovaEjectaFitting())
+    return C.MultimessengerConversion(*chain)
+
+
+class _EOSConstraintTerm:
+    """constraint(params, curves) as a likelihood of the parameters: the
+    sampled EOS's radius rows come from the tabulated set."""
+
+    def __init__(self, constraint, eos_set):
+        self.constraint = constraint
+        self.eos_set = eos_set
+
+    def __call__(self, parameters):
+        curves = None
+        if self.eos_set is not None and "EOS_index" in parameters:
+            curves = {"masses": self.eos_set.mass_grid,
+                      "radii": self.eos_set.rows(parameters["EOS_index"])}
+        return self.constraint(parameters, curves)
+
+
+def _with_priors(priors, extra):
+    from ..priors import PriorDict
+    return PriorDict({**priors.priors, **extra})
 
 
 def build_joint_likelihood(dump, device=None):
-    """(MultiMessengerLikelihood, PriorDict) from a data dump: relative
-    binning by default, else the dense likelihood with the requested
-    phase, distance and time marginalisations."""
+    """(MultiMessengerLikelihood, PriorDict) from a data dump.
+
+    GW: relative binning by default (its set-up raises rather than falling
+    back), else the dense likelihood with the requested phase, distance
+    and time marginalisations. Then, as the dump asks: the EM term (yaml
+    systematics priors join the prior), the EOS-constraint term and the NS
+    population term; a sampled Hubble_constant (``--hubble-prior``) and a
+    weighted categorical EOS prior for a weighted EOS set.
+    """
+    from ..eos import TabulatedEOSSet
     from ..gw import (GWTransientLikelihood, RelativeBinningGWLikelihood,
                       get_waveform)
     from ..joint import MultiMessengerLikelihood
-    from ..priors import adjust_priors_for_nmma, load_prior_file
+    from ..priors import (WeightedCategorical, adjust_priors_for_nmma,
+                          hubble_prior, load_prior_file)
 
     device = resolve_device(device)
     args = dump["args"]
-    _refuse_joint_flags(args)
     priors = adjust_priors_for_nmma(load_prior_file(dump["prior_file"]))
     waveform = get_waveform(args.get("waveform", "TaylorF2"))
-    conversion = _build_conversion(args, dump.get("injection"))
+    if args.get("hubble_prior"):
+        priors = _with_priors(priors, {
+            "Hubble_constant": hubble_prior(args["hubble_prior"])})
+    conversion = _build_conversion(
+        dict(args, eos_data=dump.get("eos_data"),
+             eos_weights=dump.get("eos_weights")), dump.get("injection"))
+    eos_set = next((step for step in conversion._conversions
+                    if isinstance(step, TabulatedEOSSet)), None)
+    # a weighted EOS set replaces a plain 'EOS' prior with the weighted
+    # categorical (reference setup_tabulated_eos_priors,
+    # nmma/eos/eos_likelihood.py:21-32)
+    if eos_set is not None and dump.get("eos_weights") and "EOS" in priors:
+        priors = _with_priors(priors, {"EOS": WeightedCategorical(
+            eos_set.n_eos, weights=eos_set.weights, name="EOS")})
 
     if not (args.get("no_relative_binning")
             or args.get("time_marginalization")):
@@ -351,7 +480,44 @@ def build_joint_likelihood(dump, device=None):
                 args.get("distance_marginalization")),
             time_marginalization=bool(args.get("time_marginalization")),
             device=device, **dist_kwargs)
-    return MultiMessengerLikelihood(conversion, [gw_lk]), priors
+    likelihoods = [gw_lk]
+    sanity = ()
+
+    if dump.get("em_data"):
+        from ..likelihood import (EMLikelihood, PhotometryData,
+                                  SystematicsModel)
+        from ..models import DetectorLightCurveModel
+        filters = sorted(dump["em_data"].keys())
+        if args.get("svd_path"):
+            _register_svd_model(args, device)
+        model = DetectorLightCurveModel(
+            args["em_model"], filters,
+            sample_times=np.geomspace(args["tmin"], args["tmax"], 100),
+            device=device)
+        photo, _ = PhotometryData.from_dict(dump["em_data"], filters,
+                                            device=device)
+        systematics = SystematicsModel(filters, args.get("systematics_file"),
+                                       args.get("em_error_budget"))
+        # yaml-requested systematics parameters join the sampled priors
+        sys_priors = systematics.create_priors()
+        if sys_priors:
+            priors = _with_priors(priors, sys_priors)
+        systematics.finalize(list(priors.keys()))
+        likelihoods.append(EMLikelihood(model, photo, filters, systematics))
+        sanity = ("log10_mej_dyn",)
+
+    # the EOS constraint messenger (reference joint_likelihood.py:131-141)
+    constraint = _build_constraint(dump.get("eos_constraints") or [])
+    if constraint is not None:
+        likelihoods.append(_EOSConstraintTerm(constraint, eos_set))
+
+    # the NS mass population term (reference joint_likelihood.py:156-158)
+    if args.get("population_model"):
+        from ..population import NeutronStarPopulation
+        likelihoods.append(NeutronStarPopulation(
+            args["population_model"], beta=args.get("population_beta", 0.0)))
+    return MultiMessengerLikelihood(conversion, likelihoods,
+                                    sanity_keys=sanity), priors
 
 
 def unit_cube_logl(likelihood, priors):

@@ -7,6 +7,10 @@
 //     c    = hid . W2[f] + b2[f]             [C]
 //     mags = c . VAq[f] + off[f]             [Q]   -> out[b, f, :]
 //
+// Built for two surrogates: P=4 (the production Bu2019lm, H=2048) and P=2
+// (the sparse Bu2019lm of the joint GW+EM+EOS path, H=128); P is a template
+// parameter, and the entry point dispatches on it.
+//
 // Bound: per eval 2 F (P H + H C + C Q) FLOP = 543,096 at the production
 // dims (P=4, H=2048, C=10, Q=150, F=9), i.e. 4.45 GFLOP at B=8192, against
 // ~0.9 MB of weights and 44 MB of output. At the H100 SXM's 67 TFLOP/s of f32
@@ -17,7 +21,10 @@
 //
 // Design: one block of 8 warps per (tile of NB live points, filter). The
 // warps split H: warp w takes the 32-unit chunks w, w+8, w+16, ... of the
-// filter. Each chunk's [W2 row, W1 column, b1] records (16 floats a unit) are
+// filter. Where H has fewer than 8 chunks (H=128: four), the warps past the
+// last chunk stage nothing and keep zero partial sums, which the fixed
+// reduction below adds in their place: x + 0 is x, so the order of the
+// other warps' sums is unchanged. Each chunk's [W2 row, W1 column, b1] records (16 floats a unit) are
 // copied by the warp's lanes, one unit each, into the warp's own pair of
 // shared-memory buffers with cp.async, the next chunk in flight while the
 // warp computes on this one, so no block-wide barrier sits in the loop.
@@ -42,9 +49,8 @@
 
 namespace {
 
-constexpr int P = 4;                      // surrogate inputs
 constexpr int C = 10;                     // SVD coefficients
-constexpr int REC = 16;                   // [W2 row (C), W1 column (P), b1, 0]
+constexpr int REC = 16;                   // [W2 row (C), W1 column (P), b1, 0...]
 constexpr int CP = 12;                    // C padded for float4 reads
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -68,13 +74,14 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 // blocks an SM the register file must hold: R = 6 takes ~180 registers
-template <int R, int LP>
+template <int P, int R, int LP>
 __global__ void __launch_bounds__(THREADS, R > 1 ? 1 : 3)
 svd_mlp_mags_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, const float* __restrict__ vaq,
                     const float* __restrict__ off, float* __restrict__ out,
                     int B, int H, int Q, int F) {
+  static_assert(C + P + 1 <= REC, "a hidden unit's record is 16 floats");
   constexpr int SUB = 32 / LP;            // sub-slices of a chunk in a warp
   constexpr int NB = LP * R;              // live points of the block
   constexpr int KS = CHUNK / SUB;         // units of a chunk per sub-slice
@@ -140,11 +147,16 @@ svd_mlp_mags_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     for (int k = 0; k < KS; ++k) {
       const float4* src = reinterpret_cast<const float4*>(base + k * REC);
       const float4 v0 = src[0], v1 = src[1], v2 = src[2], v3 = src[3];
-      const float wo[C] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w, v2.x, v2.y};
-      const float wi[P] = {v2.z, v2.w, v3.x, v3.y};
+      const float rec[REC] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
+                              v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+      float wo[C], wi[P];
+#pragma unroll
+      for (int c = 0; c < C; ++c) wo[c] = rec[c];
+#pragma unroll
+      for (int p = 0; p < P; ++p) wi[p] = rec[C + p];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float hid = v3.z;
+        float hid = rec[C + P];
 #pragma unroll
         for (int p = 0; p < P; ++p) hid = fmaf(xr[r][p], wi[p], hid);
         hid = fmaxf(hid, 0.f);
@@ -217,7 +229,7 @@ constexpr int smem_bytes() {
   return 4 * (stage > red ? stage : red);
 }
 
-template <int R, int LP>
+template <int P, int R, int LP>
 cudaError_t launch(const float* x, const float* w1, const float* b1, const float* w2,
             const float* b2, const float* vaq, const float* off, float* out,
             int B, int H, int Q, int F, cudaStream_t stream) {
@@ -225,10 +237,10 @@ cudaError_t launch(const float* x, const float* w1, const float* b1, const float
   constexpr int smem = smem_bytes<R, LP>();
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        svd_mlp_mags_kernel<R, LP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        svd_mlp_mags_kernel<P, R, LP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return attr;
   }
-  svd_mlp_mags_kernel<R, LP><<<grid, THREADS, smem, stream>>>(
+  svd_mlp_mags_kernel<P, R, LP><<<grid, THREADS, smem, stream>>>(
       x, w1, b1, w2, b2, vaq, off, out, B, H, Q, F);
   return cudaGetLastError();
 }
@@ -238,7 +250,7 @@ cudaError_t launch(const float* x, const float* w1, const float* b1, const float
 // Plain C entry point for ctypes. Pointers are device pointers to contiguous
 // f32 arrays: x [B,P], w1 [F,P,H], b1 [F,H], w2 [F,H,C], b2 [F,C],
 // vaq [F,C,Q], off [F,Q], out [B,F,Q], all on CUDA device `device`; the
-// launch goes to `stream`. Built for the surrogate's P == 4 and C == 10.
+// launch goes to `stream`. Built for P == 4 and P == 2, with C == 10.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* b2,
@@ -249,7 +261,7 @@ extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
   // this library has its own runtime state: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (P_ != P || C_ != C || H <= 0 || Q <= 0 || F <= 0 || F > 65535) return cudaErrorInvalidValue;
+  if ((P_ != 4 && P_ != 2) || C_ != C || H <= 0 || Q <= 0 || F <= 0 || F > 65535) return cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (got != cudaSuccess) return static_cast<int>(got);
@@ -265,9 +277,14 @@ extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
   // 192 live points a block where that grid covers three quarters of the
   // SMs (B >= 1921 at F = 9), else 16 (B = 128: 72 blocks)
   const auto fills = [&](int nb) { return 4LL * ((B + nb - 1) / nb) * F >= 3LL * sms; };
-  const cudaError_t err =
-      fills(192) ? launch<6, 32>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s)
-                 : launch<1, 16>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s);
+  const bool big = fills(192);
+  cudaError_t err;
+  if (P_ == 4)
+    err = big ? launch<4, 6, 32>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s)
+              : launch<4, 1, 16>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s);
+  else
+    err = big ? launch<2, 6, 32>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s)
+              : launch<2, 1, 16>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, H, Q, F, s);
   return static_cast<int>(err);
 }
 

@@ -1,6 +1,6 @@
 """Injection files and forward synthesis of photometry.
 
-Port of the json, LIGO-LW xml and plain-cadence parts of
+Port of the json, LIGO-LW xml, plain-cadence and injection-set parts of
 ``nmma_tpu/injections.py`` (the reference's bilby-style injection files,
 ``nmma/core/utils.py:84-96``,
 and ``create_light_curve_data``, ``nmma/em/lightcurve_generation.py
@@ -117,10 +117,81 @@ def create_light_curve_data(injection_parameters, model, filters,
 
 
 class InjectionCreator:
-    """Prior-draw injection sets with test-and-redraw loops: part of the
-    joint path, which is not in the port yet."""
+    """Prior-draw injection sets with test-and-redraw loops.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InjectionCreator belongs to the joint path, which "
-            "nmma_tpu_torch does not have yet (ROADMAP item 16)")
+    Counterpart of ``InjectionCreator`` (nmma_tpu/injections.py:198-251;
+    the reference's ``NMMAInjectionCreator``,
+    nmma/joint/injection_handling.py:18-228): draw from the prior, run the
+    conversion chain, apply the tests (finite ejecta, an SNR threshold,
+    custom predicates) and redraw the failures up to ``max_redraws``
+    times. The unit-cube draws come from an explicit ``torch.Generator``
+    seeded with ``seed`` on ``device``.
+    """
+
+    def __init__(self, priors, conversion=None, tests=(), max_redraws=100,
+                 seed=42, device=None):
+        self.priors = priors
+        self.conversion = conversion
+        self.tests = list(tests)
+        self.max_redraws = max_redraws
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def _units(self, n):
+        return torch.rand((n, self.priors.ndim), generator=self.generator,
+                          device=self.device)
+
+    def _draw(self, n):
+        with torch.no_grad():
+            params = self.priors.transform(self._units(n))
+            if self.conversion is not None:
+                params = self.conversion(params)
+        return {k: v.cpu().numpy() for k, v in params.items()}
+
+    def _passes(self, params):
+        ok = np.ones(len(next(iter(params.values()))), dtype=bool)
+        for test in self.tests:
+            ok &= np.asarray(test(params))
+        return ok
+
+    def generate(self, n_injection):
+        """{parameter: [n_injection] array} of draws that pass every
+        test."""
+        params = self._draw(n_injection)
+        ok = self._passes(params)
+        redraws = 0
+        while not ok.all() and redraws < self.max_redraws:
+            fresh = self._draw(int((~ok).sum()))
+            fresh_ok = self._passes(fresh)
+            take = np.flatnonzero(~ok)[:fresh_ok.sum()]
+            src_idx = np.flatnonzero(fresh_ok)[:len(take)]
+            for k in params:
+                if k in fresh:
+                    params[k][take] = fresh[k][src_idx]
+            ok[take] = True
+            redraws += 1
+        if not ok.all():
+            raise RuntimeError(
+                f"{(~ok).sum()} injections still failing after "
+                f"{self.max_redraws} redraws")
+        return params
+
+
+def finite_ejecta_test(params):
+    """Reject draws whose conversion gave no ejecta (reference :274-280)."""
+    mej = np.asarray(params["log10_mej"])
+    return np.isfinite(mej) & (mej > -1e29)
+
+
+def snr_test(gw_likelihood, threshold=8.0):
+    """Network-SNR threshold test (reference test_snr, :283-344): the GW
+    likelihood's optimal SNR of every draw, in one batch."""
+    def test(params):
+        batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                    device=gw_likelihood.device)
+                 for k, v in params.items() if np.ndim(v) >= 1}
+        with torch.no_grad():
+            snr = gw_likelihood.optimal_snr(batch)
+        return snr.cpu().numpy() >= threshold
+    return test

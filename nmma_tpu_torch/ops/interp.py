@@ -37,10 +37,11 @@ def interp(xq, xp, fp, left=None, right=None):
     return torch.where(xq > xp[-1], fp[-1] if right is None else right, f)
 
 
-def interp_rows(xq, xp, fp):
+def interp_rows(xq, xp, fp, left=None, right=None):
     """``jnp.interp`` applied row by row: ``fp`` [B, N] against ``xp`` [N]
     or [B, N] (ascending along N), queries ``xq`` [Q] or [B, Q]; returns
-    [B, Q] with constant extrapolation, by the formula of ``interp``."""
+    [B, Q] by the formula of ``interp``, with constant extrapolation unless
+    ``left``/``right`` are given."""
     b, n = fp.shape
     xp = xp.expand(b, n).contiguous()
     xq = xq.expand(b, xq.shape[-1]).contiguous()
@@ -53,8 +54,9 @@ def interp_rows(xq, xp, fp):
     f = torch.where(dx0, f_lo,
                     f_lo + ((xq - x_lo) / torch.where(dx0, 1.0, dx))
                     * (f_hi - f_lo))
-    f = torch.where(xq < xp[:, :1], fp[:, :1], f)
-    return torch.where(xq > xp[:, -1:], fp[:, -1:], f)
+    f = torch.where(xq < xp[:, :1], fp[:, :1] if left is None else left, f)
+    return torch.where(xq > xp[:, -1:], fp[:, -1:] if right is None else right,
+                       f)
 
 
 def masked_interp(xq, x, y, valid=None, left=None, right=None,

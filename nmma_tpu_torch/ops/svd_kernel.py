@@ -20,7 +20,9 @@ from .. import _kernels
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
-KERNEL_P = 4         # parameter count the kernel is built for
+# parameter counts the kernel is built for: the production Bu2019lm (4) and
+# the sparse Bu2019lm of the joint path (2)
+KERNEL_PS = (2, 4)
 KERNEL_C = 10        # coefficient count the kernel is built for
 
 
@@ -73,8 +75,8 @@ def svd_surrogate_mags(x, w1, b1, w2c, b2, va_q, off_q):
     b, p = x.shape
     n_f, _, h = w1.shape
     c, q = w2c.shape[2], va_q.shape[2]
-    if p != KERNEL_P or c != KERNEL_C:
-        raise ValueError(f"the K1 kernel takes P={KERNEL_P} and "
+    if p not in KERNEL_PS or c != KERNEL_C:
+        raise ValueError(f"the K1 kernel takes P in {KERNEL_PS} and "
                          f"C={KERNEL_C}; got P={p}, C={c}")
     out = torch.empty((b, n_f, q), dtype=torch.float32, device=x.device)
     if b == 0:

@@ -168,8 +168,6 @@ def test_unported_entry_points_name_their_items(config, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         t_cli.main([path, "--svd-path", "", "--model", "Fiesta_kn_model",
                     "--skip-sampling"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        t_injections.InjectionCreator(None)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         t_astro.inclination_prior_from_fits("skymap.fits", dL=40.0)
     with pytest.raises(RuntimeError, match="dustmaps"):

@@ -43,12 +43,18 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.gw.gwf", "nmma_tpu_torch.gw.fetch",
        "nmma_tpu_torch.joint", "nmma_tpu_torch.joint.likelihood",
        "nmma_tpu_torch.conversion", "nmma_tpu_torch.io.ligolw",
-       "nmma_tpu_torch.cli.joint_main"}
+       "nmma_tpu_torch.cli.joint_main",
+       "nmma_tpu_torch.eos", "nmma_tpu_torch.eos.eos",
+       "nmma_tpu_torch.eos.tov", "nmma_tpu_torch.eos.generation",
+       "nmma_tpu_torch.eos.cse", "nmma_tpu_torch.eos.likelihood",
+       "nmma_tpu_torch.population", "nmma_tpu_torch.population.likelihood",
+       "nmma_tpu_torch.injections"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+from nmma_tpu_torch import eos
 from nmma_tpu_torch.cli import joint_main, lightcurve_analysis
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
@@ -70,6 +76,11 @@ ENTRY_POINTS = {
         ["--prior-file", "never-read.prior"]),
     "cli.joint_main.nmma_analysis": lambda: joint_main.nmma_analysis(
         ["--data-dump", "never-read.pickle"]),
+    "eos.construct_families": lambda: eos.construct_families([]),
+    "eos.construct_family": lambda: eos.construct_family(None),
+    "eos.cse_eos_family": lambda: eos.cse_eos_family(None),
+    "eos.tabulate_weighted_eos": lambda: eos.tabulate_weighted_eos(
+        None, None, "never-written"),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():

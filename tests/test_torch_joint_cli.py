@@ -20,8 +20,10 @@ IMRPhenomD_NRTidalv2, relative binning). Compared:
 Then the real-strain case without an injection of
 tests/test_joint_cli_breadth.py:57-101 in the port (hdf5 strain, median
 Welch PSD, ML fiducial, a short analysis), a tiny analysis of the dump, and
-every flag of the joint path's EOS, EM, population and Hubble parts raising
-with its ROADMAP item.
+every flag of the joint path's EOS, EM, population and Hubble parts in both
+packages (config 5's EOS run at H1 + L1, 8 s, TaylorF2): the dumps agree,
+and the port's likelihood gives the JAX package's test logL within the GW +
+EM gate of tests/test_torch_joint.py.
 """
 
 import json
@@ -245,40 +247,167 @@ def test_time_marginalized_dump_builds_the_dense_likelihood(strain_files,
     assert np.isfinite(meta["test_logl"])
 
 
-ITEM_16 = {
-    "eos_data": ["--eos-data", "eos_dir"],
-    "eos_weights": ["--eos-weights", "w.txt"],
-    "eos_reweight": ["--eos-reweight"],
-    "lower_mtov": ["--lower-mtov", "2.0,0.05"],
-    "upper_mtov": ["--upper-mtov", "2.3,0.1"],
-    "mass_radius": ["--mass-radius-files", "mr.dat"],
-    "constraint_json": ["--eos-constraint-json", "c.json"],
-    "em_model": ["--em-model", "Bu2019lm"],
-    "light_curve": ["--light-curve-data", "lc.dat"],
-    "population": ["--population-model", "peak"],
+def joint_inputs(root):
+    """The EOS set, weights, mass-radius samples, constraint json and light
+    curve that the joint flags read, made once under ``root``."""
+    from test_torch_eos import write_macro_set
+    from test_torch_joint import config5_args
+
+    from nmma_tpu_torch.injections import create_light_curve_data
+    from nmma_tpu_torch.io import write_em_observations
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+
+    write_macro_set(root / "eos")
+    np.savetxt(root / "w.txt", np.linspace(1.0, 3.0, 10))
+    rng = np.random.default_rng(8)
+    np.savetxt(root / "mr.dat", np.column_stack([
+        rng.normal(1.4, 0.1, 4000), rng.normal(11.5, 0.6, 4000)]))
+    (root / "c.json").write_text(json.dumps({
+        "psr": {"type": "lower_mtov", "mass": 2.0, "error": 0.04},
+        "nicer": {"type": "mass_radius", "file": str(root / "mr.dat")}}))
+    make_svd_source_model("Bu2019lm_sparse", SVDModelData.load(
+        "artifacts/Bu2019lm_sparse_svd.npz", device="cpu"))
+    data = create_light_curve_data(
+        {"log10_mej_dyn": -2.3, "log10_mej_wind": -1.6,
+         "luminosity_distance": 40.0}, "Bu2019lm_sparse", ["ztfg", "ztfr"],
+        tmin=0.5, tmax=10.0, n_tsteps=12, seed=3,
+        trigger_time=EM_TRIGGER, device="cpu")
+    write_em_observations(root / "lc.dat", data, fmt="dat")
+    return config5_args(root, root / "eos", waveform="TaylorF2")
+
+
+EM_TRIGGER = 57982.5285236896
+EM = ["--em-model", "Bu2019lm_sparse",
+      "--svd-path", "artifacts/Bu2019lm_sparse_svd.npz"]
+# the flags of the joint path, each added to config 5's EOS run (to its GW
+# part alone for the population and Hubble priors); {root} is the inputs'
+# directory
+JOINT_FLAGS = {
+    "eos_data": [],
+    "eos_weights": ["--eos-weights", "{root}/w.txt"],
+    "eos_reweight": ["--eos-reweight", "--lower-mtov", "2.1,0.05"],
+    "lower_mtov": ["--lower-mtov", "2.1,0.05"],
+    "upper_mtov": ["--upper-mtov", "2.15,0.1"],
+    "mass_radius": ["--mass-radius-files", "{root}/mr.dat"],
+    "constraint_json": ["--eos-constraint-json", "{root}/c.json"],
+    "em_model": EM,
+    "light_curve": EM + ["--light-curve-data", "{root}/lc.dat",
+                         "--em-trigger-time", repr(EM_TRIGGER)],
+    "population": ["--population-model", "peak", "--population-beta",
+                   "1.5"],
     "hubble": ["--hubble-prior", "planck"],
 }
 
 
-@pytest.mark.parametrize("case", list(ITEM_16))
-def test_joint_flags_name_their_item(tmp_path, case):
-    prior, injection = write_inputs(tmp_path, "json")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        t_cli.nmma_generation(GEN + [
-            "--prior-file", str(prior), "--injection-file", str(injection),
-            "--outdir", str(tmp_path), *ITEM_16[case]], device="cpu")
+@pytest.fixture(scope="module")
+def joint_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("joint_flags")
+    return root, joint_inputs(root)
 
 
-def test_eos_injection_names_its_item(tmp_path):
+def _generate_both(root, args):
+    out = {}
+    for side, cli, kw in (("jax", j_cli, {}), ("port", t_cli,
+                                               {"device": "cpu"})):
+        path = cli.nmma_generation(args + ["--outdir", str(root / side),
+                                           "--label", "j"], **kw)
+        with open(path, "rb") as f:
+            dump = pickle.load(f)
+        meta = json.loads((root / side / "j_generation_meta.json")
+                          .read_text())
+        out[side] = (dump, meta)
+    return out
+
+
+def _test_point_matches(j_dump, j_meta, t_dump):
+    """The port's likelihood of its own dump, on the JAX package's GW data
+    and photometry, at the JAX package's test point: the GW + EM gate of
+    tests/test_torch_joint.py."""
+    from test_torch_joint import data_power, joint_gate, port_dump_on_jax_data
+    dump = port_dump_on_jax_data(t_dump, j_dump)
+    lk, priors = t_cli.build_joint_likelihood(dump, device="cpu")
+    point = t_cli._fill_from_priors(t_dump["fiducial"], priors, "cpu")
+    batch = {k: torch.tensor([v]) for k, v in point.items()}
+    got = lk(batch).numpy()
+    assert np.isfinite(j_meta["test_logl"]) and got[0] > -1e29
+    joint_gate(lk, batch, got, np.array([j_meta["test_logl"]]),
+               data_power(dump["ifos"], point))
+    return lk, priors
+
+
+@pytest.mark.parametrize("case", list(JOINT_FLAGS))
+def test_joint_flags_match_jax(joint_root, tmp_path, case):
+    """nmma_generation with each joint flag in both packages: the dumps'
+    EOS, constraint and EM parts agree, and the port's likelihood of its
+    dump gives the JAX package's test logL."""
+    root, config5 = joint_root
+    flags = [f.replace("{root}", str(root)) for f in JOINT_FLAGS[case]]
+    if case in ("population", "hubble"):
+        prior, injection = write_inputs(tmp_path, "json")
+        args = GEN + ["--prior-file", str(prior), "--injection-file",
+                      str(injection)]
+    else:
+        args = config5
+    sides = _generate_both(tmp_path, args + flags)
+    (j_dump, j_meta), (t_dump, t_meta) = sides["jax"], sides["port"]
+    assert sorted(t_dump) == sorted(j_dump)
+    for k, v in j_dump["fiducial"].items():
+        np.testing.assert_allclose(t_dump["fiducial"][k], v, rtol=1e-5,
+                                   err_msg=k)
+    assert t_dump["eos_constraints"] == j_dump["eos_constraints"]
+    assert (t_dump["em_data"] is None) == (j_dump["em_data"] is None)
+    for f, obs in (j_dump["em_data"] or {}).items():
+        np.testing.assert_allclose(t_dump["em_data"][f]["time"], obs["time"])
+        np.testing.assert_allclose(t_dump["em_data"][f]["mag"], obs["mag"],
+                                   rtol=0, atol=1e-4)
+    if case == "eos_reweight":
+        assert t_dump["eos_constraints"] == []
+        np.testing.assert_allclose(np.loadtxt(t_dump["eos_weights"]),
+                                   np.loadtxt(j_dump["eos_weights"]),
+                                   rtol=1e-5)
+        for i in range(1, 11):
+            np.testing.assert_allclose(
+                np.loadtxt(f"{t_dump['eos_data']}/{i}.dat"),
+                np.loadtxt(f"{j_dump['eos_data']}/{i}.dat"), rtol=1e-6)
+    else:
+        assert t_dump["eos_data"] == j_dump["eos_data"]
+        assert t_dump["eos_weights"] == j_dump["eos_weights"]
+    lk, priors = _test_point_matches(j_dump, j_meta, t_dump)
+    names = [type(term).__name__ for term in lk.likelihoods]
+    if case in ("eos_weights", "eos_reweight"):
+        assert type(priors["EOS"]).__name__ == "WeightedCategorical"
+    if case == "hubble":
+        assert "Hubble_constant" in priors.sampled_names
+    if case == "population":
+        assert names[-1] == "NeutronStarPopulation"
+    if case in ("lower_mtov", "upper_mtov", "mass_radius",
+                "constraint_json"):
+        assert names[-1] == "_EOSConstraintTerm"
+    if case in ("em_model", "light_curve"):
+        assert names[-1] == "EMLikelihood"
+        assert lk.sanity_keys == ("log10_mej_dyn",)
+
+
+def test_eos_injection_matches_jax(tmp_path):
+    """An injection carrying EOS, ratio_zeta and TOV_mass without EOS data:
+    both packages' chains take the quasi-universal radii and the ejecta
+    fits, and give the same converted injection and test logL."""
     from nmma_tpu_torch.injections import write_injection_file
     prior, _ = write_inputs(tmp_path, "json")
     injection = tmp_path / "eos.json"
     write_injection_file(injection, {**{k: [v] for k, v in INJ.items()},
-                                     "EOS": [4.2], "ratio_zeta": [0.3]})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        t_cli.nmma_generation(GEN + [
-            "--prior-file", str(prior), "--injection-file", str(injection),
-            "--outdir", str(tmp_path)], device="cpu")
+                                     "EOS": [4.2], "ratio_zeta": [0.3],
+                                     "TOV_mass": [2.2], "alpha": [5e-5]})
+    sides = _generate_both(tmp_path, GEN + [
+        "--prior-file", str(prior), "--injection-file", str(injection)])
+    (j_dump, j_meta), (t_dump, _) = sides["jax"], sides["port"]
+    fid = t_dump["fiducial"]
+    for k in ("radius_1", "radius_2", "R_16", "log10_mej_dyn",
+              "log10_mej_wind", "log10_mej", "log10_E0"):
+        np.testing.assert_allclose(fid[k], j_dump["fiducial"][k], rtol=1e-5,
+                                   err_msg=k)
+    assert np.isfinite(fid["log10_mej"]) and fid["radius_1"] > 0
+    _test_point_matches(j_dump, j_meta, t_dump)
 
 
 CONVERSIONS = {
@@ -377,11 +506,3 @@ def test_cosmology_clone_and_set_match_jax():
 def jnp_array(values):
     import jax.numpy as jnp
     return jnp.asarray(values, jnp.float32)
-
-
-def test_conversion_joint_steps_name_their_item():
-    import nmma_tpu_torch.conversion as t_conv
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        t_conv.radii_from_qur({})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        t_conv.KilonovaEjectaFitting()

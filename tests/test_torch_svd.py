@@ -247,3 +247,85 @@ def test_k1_summation_order_matches_plain_and_float64(lp):
           f"{rms(plain):.3e}")
     assert c_err_emu <= c_err_plain
     assert rms(emu) <= rms(plain)
+
+
+# --- the sparse Bu2019lm of the joint path: K1 at P = 2, H = 128 ----------
+SPARSE = "artifacts/Bu2019lm_sparse_svd.npz"
+# config 5's EM grid (geomspace(--em-tmin, --em-tmax, 100)), inside the
+# trained range [0.2, 14] d
+SPARSE_T_DAYS = np.geomspace(0.2, 14.0, 100)
+
+
+@pytest.fixture(scope="module")
+def sparse_eval():
+    return _SVDFastEval(JaxSVDModelData.load(SPARSE))
+
+
+@pytest.mark.parametrize("batch", [1, 128, 200])
+def test_plain_k1_matches_pallas_on_the_sparse_surrogate(sparse_eval, batch):
+    """P = 2, H = 128, C = 10, F = 9, Q = 100: the plain K1 against the
+    Pallas kernel in interpret mode and the JAX rank-C eval, atol 1e-4
+    mag."""
+    ev = sparse_eval
+    assert ev._w1_stack.shape[1:] == (2, 128)
+    va_q, off_q, inside = ev.operator_rankc(SPARSE_T_DAYS)
+    assert inside.all()
+    x = np.random.default_rng(batch + 1).uniform(
+        0.0, 1.0, (batch, 2)).astype(np.float32)
+    ops = (ev._w1_stack, ev._b1_stack, ev._w2c, ev._b2c, va_q, off_q)
+    pallas = np.asarray(svd_surrogate_mags_pallas(
+        jnp.asarray(x), *ops, interpret=True))
+    core, _ = ev._rankc_fn(SPARSE_T_DAYS)
+    rankc = np.asarray(jax.vmap(core)(jnp.asarray(x)))
+    got = svd_kernel.svd_surrogate_mags(_t(x), *[_t(a) for a in ops]).numpy()
+    assert got.shape == (batch, 9, 100)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, rankc, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("lp", [32, 16])
+def test_k1_summation_order_on_the_sparse_surrogate(lp):
+    """At H = 128 the 8 warps have four 32-unit chunks: warps 4-7 keep zero
+    partial sums, which the fixed reduction adds exactly (x + 0 = x). The
+    kernel's order on the sparse surrogate agrees with the plain K1 within
+    ATOL, is no less accurate than it against float64 in the coefficients,
+    and equals the order with the four idle warps left out bit for bit."""
+    svd = SVDModelData.load(SPARSE, device="cpu")
+    va_q, off_q, inside = svd.operator_rankc(
+        torch.tensor(SPARSE_T_DAYS, dtype=torch.float32))
+    assert inside.all() and svd.w1.shape[1:] == (2, 128)
+    x = torch.from_numpy(np.random.default_rng(32).uniform(
+        0.0, 1.0, (64, 2)).astype(np.float32))
+    mlp = (svd.w1, svd.b1, svd.w2, svd.b2)
+    emu = emulate_k1(x, *mlp, va_q, off_q, lp=lp)
+    plain = svd_kernel.svd_surrogate_mags_plain(x, *mlp, va_q, off_q)
+    np.testing.assert_allclose(emu.numpy(), plain.numpy(), rtol=0,
+                               atol=ATOL)
+    c_emu = emulate_k1_coeffs(x, *mlp, lp=lp)
+    hid = torch.relu(torch.einsum("bp,fph->bfh", x.double(),
+                                  svd.w1.double()) + svd.b1.double()[None])
+    c_exact = torch.einsum("bfh,fhc->bfc", hid, svd.w2.double()) \
+        + svd.b2.double()[None]
+    hid32 = torch.relu(torch.einsum("bp,fph->bfh", x, svd.w1)
+                       + svd.b1[None])
+    c_plain = torch.einsum("bfh,fhc->bfc", hid32, svd.w2) + svd.b2[None]
+    assert float((c_emu.double() - c_exact).abs().max()) <= \
+        float((c_plain.double() - c_exact).abs().max())
+    # the four busy warps alone, in order, then b2
+    sub = CHUNK // lp
+    hid = svd.b1[None].expand(64, -1, -1)
+    for p in range(2):
+        hid = _fma32(x[:, None, p, None], svd.w1[None, :, p, :], hid)
+    hid = hid.clamp(min=0.0).reshape(64, 9, 4, sub, lp)
+    w2 = svd.w2.reshape(9, 4, sub, lp, 10)
+    part = torch.zeros((64, 9, 4, sub, 10))
+    for k in range(lp):
+        part = _fma32(hid[..., k, None], w2[None, ..., k, :], part)
+    o = 1
+    while o < sub:
+        part = part + part[:, :, :, torch.arange(sub) ^ o]
+        o *= 2
+    c = part[:, :, 0, 0]
+    for w in range(1, 4):
+        c = c + part[:, :, w, 0]
+    assert torch.equal(c + svd.b2[None], c_emu)
