@@ -17,7 +17,9 @@ config 3's posterior against the JAX package's, the ensemble MCMC, the
 supernova, shock-cooling, spectral and bolometric paths, GW-only BNS
 inference through nmma-generation / nmma-analysis (no kernel), and joint
 GW + EM + EOS inference (BASELINE config 5: the sparse Bu2019lm surrogate,
-P=2, H=128, through K1, and EOS tables the port's TOV solver makes):
+P=2, H=128, through K1, and EOS tables the port's TOV solver makes); then
+fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
+(no kernel of their own; Bu2019lm through K1 where they use it):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -212,6 +214,52 @@ P=2, H=128, through K1, and EOS tables the port's TOV solver makes):
               step), no K2/K3; logZ, seconds; the injection inside the 90%
               intervals of chirp_mass, mass_ratio, luminosity_distance and
               EOS_index.
+
+ 31. fiesta_lc
+              (phases 31-37 run after phase 25, on the EOS tables of phase
+              27) a lightcurve-kind fiesta surrogate seeded at the
+              production Bu2019lm surrogate's filters, parameters, supports
+              and 100-point grid with two hidden layers of 2,048 (this
+              repo's assumed shape: no fiesta weights are in the repo),
+              through EMAnalysis.batched_logl at B = 8192 and 128 on
+              photometry it makes: evals/s, device-busy ms, idle share,
+              launches, peak memory; the card against the CPU at B = 128
+              (magnitudes within 1e-4 mag, the logL gate); no K1-K3.
+ 32. fiesta_flux
+              a flux-kind surrogate on TrPi2018's 8 parameters with
+              alphaWing (64 log-spaced frequencies over the GRB filters,
+              100 times, two hidden layers of 2,048) at B = 8192, at the
+              filters' frequencies and over their quadrature: ms, peak
+              memory, the GRB gate's count equal to the CPU's, magnitudes
+              within 1e-4 mag of the CPU at B = 512.
+ 33. fiesta_cli
+              lightcurve-analysis --fiesta-surrogates-dir on a fiesta-format
+              directory of phase 31's surrogate (pickled metadata and
+              per-filter parameter trees), nested sampling to convergence
+              at nlive 512: seconds, logZ, the 90% intervals beside the
+              injection (printed, not gated: a seeded random network need
+              not make every parameter identifiable).
+ 34. fits     a multi-order sky map (UNIQ and the four *_SAMPLES columns)
+              and an m4opt limit map written with write_bintable;
+              lightcurve-analysis --fits-file --dL --ra --dec
+              --detection-limit-fits-file on the [cli] configuration with
+              KNtheta from the sky map's inclination prior, --skip-sampling
+              on the card and the CPU (the prior's nodes and the limit
+              equal), then the card's analysis capped at 40 iterations:
+              K1 launches 1 + iterations x walks.
+ 35. possis   a seeded POSSIS ASCII spectrum (4 angles, 500 wavelengths, 50
+              times) through spectral_model_from_file, batched_logl at
+              B = 8192 as phase 19, the card against the CPU at B = 128.
+ 36. marginalisation
+              lightcurve-marginalisation on 2,000 seeded GW posterior
+              samples, the EOS tables and Bu2019lm (one K1 launch):
+              seconds, and the percentile bands within 1e-4 mag of the
+              port's CPU run on the same draws.
+ 37. resampling
+              GWEMResampler on the EOS tables and MaximumMassResampler on
+              their baryonic tables (host odeint, 10 EOS x 19 masses), each
+              a nested run capped at 40 iterations: seconds, finite logZ,
+              no K1-K3 launch.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1856,61 +1904,9 @@ def em_models(np, torch, gen):
     from nmma_tpu_torch.likelihood import BolometricLikelihood
     from nmma_tpu_torch.models import (DetectorLightCurveModel,
                                        spectral_model_from_file)
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
     from nmma_tpu_torch.priors import parse_prior_dict
 
     spectral_model_from_file("sn_template_smoke", SN_TEMPLATE)
-
-    def measure(model, fn_on, fn_cpu, u, injection_logl):
-        """Launches, throughput, profile and the CPU comparison of one
-        model's batched log-likelihood."""
-        fn_on(u[:128])                          # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_mb = torch.cuda.memory_allocated() / 2**20
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-            grb_kernel.LAUNCHES = 0
-        logl = fn_on(u)
-        torch.cuda.synchronize()
-        peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
-                    grb_kernel.LAUNCHES)
-        if launches != (0, 0, 0):
-            raise RuntimeError(f"{model} launched K1, K2, K3 {launches}")
-        if logl.shape != (BATCH,) or torch.isnan(logl).any():
-            raise RuntimeError(f"bad {model} logL {logl.shape}")
-        usable = logl > -1e29
-        finite_share = float(usable.float().mean())
-        if finite_share < 0.5:
-            raise RuntimeError(f"only {finite_share:.3f} of {model} logL "
-                               "finite")
-        logl_ms, calls, round_ms = throughput(torch, lambda: fn_on(u))
-        busy, n_launch = device_profile(torch, lambda: fn_on(u))[:2]
-        got = fn_on(u[:128]).cpu()
-        want = fn_cpu(u[:128].cpu())
-        if not torch.equal(got > -1e29, want > -1e29):
-            raise RuntimeError(f"{model}: sentinels differ between the card "
-                               "and the CPU")
-        ok = want > -1e29
-        dlogl = (got - want)[ok].abs()
-        if bool((dlogl > LOGL_ATOL + LOGL_RTOL * want[ok].abs()).any()):
-            raise RuntimeError(f"{model}: the card's logL is "
-                               f"{float(dlogl.max())} off the CPU's")
-        if not injection_logl > float(logl[usable].median()):
-            raise RuntimeError(f"{model}: injection logL {injection_logl} "
-                               "below the median")
-        say("em_models", model=model, batch=BATCH,
-            finite_share=f"{finite_share:.4f}", calls=calls,
-            wall_ms=f"{logl_ms:.4f}",
-            evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
-            evals_per_s_rounds=",".join(
-                f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
-            device_busy_ms=f"{busy:.4f}", kernel_launches=n_launch,
-            peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
-            cpu_batch=128, cpu_finite=int(ok.sum()),
-            max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
-            max_rel_dlogl_vs_cpu=f"{float((dlogl / want[ok].abs().clamp(min=1.0)).max()):.3e}",
-            logl_injection=f"{injection_logl:.3f}")
 
     for model, (prior_text, injection, grid, filters, epochs) in \
             EM_MODELS.items():
@@ -1931,9 +1927,10 @@ def em_models(np, torch, gen):
             analysis = EMAnalysis(cfg, device=DEVICE)
             on_cpu = EMAnalysis(cfg, device="cpu")
             u = analysis.priors.sample_units(gen, BATCH)
-            measure(model, analysis.batched_logl, on_cpu.batched_logl, u,
-                    float(analysis.batched_logl(injection_units(
-                        analysis.priors, injection))[0]))
+            measure_logl(torch, "em_models", model, analysis.batched_logl,
+                         on_cpu.batched_logl, u,
+                         float(analysis.batched_logl(injection_units(
+                             analysis.priors, injection))[0]))
 
     for model, prior_text, injection in (
             ("Arnett", ARNETT_PRIOR_TEXT, ARNETT_INJECTION),
@@ -1948,8 +1945,60 @@ def em_models(np, torch, gen):
                 model, [], device=device), phase, lbol, lbol_err)
             funcs.append(lambda v, like=like: like(priors.transform(v)))
         u = priors.sample_units(gen, BATCH)
-        measure(model, *funcs, u, float(funcs[0](
+        measure_logl(torch, "em_models", model, *funcs, u, float(funcs[0](
             injection_units(priors, injection))[0]))
+
+
+def measure_logl(torch, phase, model, fn_on, fn_cpu, u, injection_logl):
+    """Launches (none of K1-K3), throughput, profile and peak memory of one
+    model's batched log-likelihood ``fn_on`` at B = BATCH, and the card
+    against ``fn_cpu`` at B = 128 (LOGL_RTOL, LOGL_ATOL, identical
+    sentinels); printed as ``[phase]``."""
+    fn_on(u[:128])                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    logl = fn_on(u)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = kernel_launches()
+    if launches != (0, 0, 0):
+        raise RuntimeError(f"{model} launched K1, K2, K3 {launches}")
+    if logl.shape != (BATCH,) or torch.isnan(logl).any():
+        raise RuntimeError(f"bad {model} logL {logl.shape}")
+    usable = logl > -1e29
+    finite_share = float(usable.float().mean())
+    if finite_share < 0.5:
+        raise RuntimeError(f"only {finite_share:.3f} of {model} logL "
+                           "finite")
+    logl_ms, calls, round_ms = throughput(torch, lambda: fn_on(u))
+    busy, n_launch = device_profile(torch, lambda: fn_on(u))[:2]
+    got = fn_on(u[:128]).cpu()
+    want = fn_cpu(u[:128].cpu())
+    if not torch.equal(got > -1e29, want > -1e29):
+        raise RuntimeError(f"{model}: sentinels differ between the card "
+                           "and the CPU")
+    ok = want > -1e29
+    dlogl = (got - want)[ok].abs()
+    if bool((dlogl > LOGL_ATOL + LOGL_RTOL * want[ok].abs()).any()):
+        raise RuntimeError(f"{model}: the card's logL is "
+                           f"{float(dlogl.max())} off the CPU's")
+    if not injection_logl > float(logl[usable].median()):
+        raise RuntimeError(f"{model}: injection logL {injection_logl} "
+                           "below the median")
+    say(phase, model=model, batch=BATCH,
+        finite_share=f"{finite_share:.4f}", calls=calls,
+        wall_ms=f"{logl_ms:.4f}",
+        evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
+        evals_per_s_rounds=",".join(
+            f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
+        device_busy_ms=f"{busy:.4f}", kernel_launches=n_launch,
+        peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+        cpu_batch=128, cpu_finite=int(ok.sum()),
+        max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
+        max_rel_dlogl_vs_cpu=f"{float((dlogl / want[ok].abs().clamp(min=1.0)).max()):.3e}",
+        logl_injection=f"{injection_logl:.3f}")
 
 
 def arnett_lbol(np, torch, model, injection):
@@ -2636,8 +2685,8 @@ def eos_path(np, torch, gen, tmp):
     all in one RK4 loop), held against the same call on the CPU, and writes
     the macro files; then load_macro_eos_set and the TabulatedEOSSet step
     at B = BATCH. Returns the macro directory."""
-    from nmma_tpu_torch.eos import (construct_families, load_macro_eos_set,
-                                    nep_eos_table)
+    from nmma_tpu_torch.eos import (construct_families, eos_from_nep,
+                                    load_macro_eos_set, nep_eos_table)
 
     tables = [nep_eos_table(32.0, slope, crust_table(np))
               for slope in EOS_SLOPES]
@@ -2666,6 +2715,19 @@ def eos_path(np, torch, gen, tmp):
             and worst["lambda"] <= EOS_LAMBDA_RTOL):
         raise RuntimeError(f"the EOS family on the card against the CPU: "
                            f"{worst}")
+    # the maximum-mass resampler's tables ([resampling]): macro (R, M,
+    # Lambda, P_c) on each stable branch, micro (n, eps, p, cs2)
+    for kind in ("macro", "micro"):
+        os.makedirs(os.path.join(tmp, "baryonic", kind))
+    for i, (slope, (r, m, lam, pc)) in enumerate(zip(EOS_SLOPES, card)):
+        n, p, eps = eos_from_nep(32.0, slope, crust_table(np)).T
+        m = m.cpu().numpy()
+        stable = slice(0, int(np.argmax(m)) + 1)
+        np.savetxt(os.path.join(tmp, "baryonic", "macro", f"{i}.dat"),
+                   np.column_stack([r.cpu().numpy(), m, lam.cpu().numpy(),
+                                    pc.cpu().numpy()])[stable])
+        np.savetxt(os.path.join(tmp, "baryonic", "micro", f"{i}.dat"),
+                   np.column_stack([n, eps, p, np.gradient(p, eps)]))
     t0 = time.time()
     eos_set = load_macro_eos_set(eos_dir)
     load_ms = 1e3 * (time.time() - t0)
@@ -2913,19 +2975,699 @@ def joint_reweight(np, torch, tmp, eos_dir):
         test_logl=f"{meta['test_logl']:.4f}")
 
 
-def joint_path(np, torch):
+def joint_path(np, torch, tmp):
     """The joint GW + EM + EOS path of config 5: [k1_sparse], [eos],
-    [joint_logl], [joint_reweight], [joint_cli]. Returns K1's fields for
-    the kernel line."""
+    [joint_logl], [joint_reweight], [joint_cli], with the EOS tables made
+    under ``tmp`` (the post-processing phases read them later). Returns
+    K1's fields for the kernel line."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(13)
     fields = k1_sparse(np, torch, gen)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
-        eos_dir = eos_path(np, torch, gen, tmp)
-        joint_logl(np, torch, gen, tmp, eos_dir)
-        joint_reweight(np, torch, tmp, eos_dir)
-        fields["launches_joint_cli"] = joint_cli(np, torch, eos_dir)
+    eos_dir = eos_path(np, torch, gen, tmp)
+    joint_logl(np, torch, gen, tmp, eos_dir)
+    joint_reweight(np, torch, tmp, eos_dir)
+    fields["launches_joint_cli"] = joint_cli(np, torch, eos_dir)
     return fields
+
+
+# ---------------------------------------------------------------------------
+# fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
+# (no K1-K3 on the fiesta, FITS-prior, POSSIS and resampling paths; the
+# [fits] and [marginalisation] runs evaluate Bu2019lm through K1)
+# ---------------------------------------------------------------------------
+# seeded fiesta surrogates at shapes this repo assumes (no fiesta weights are
+# in the repo): the lightcurve kind at the production Bu2019lm surrogate's
+# filters, parameters, supports and time grid; the flux kind on TrPi2018's
+# parameters with alphaWing, FIESTA_NU log-spaced frequencies over the GRB
+# filters and FIESTA_FLUX_TIMES times; both with two hidden layers of
+# FIESTA_HIDDEN units
+FIESTA_HIDDEN = 2048
+FIESTA_NU = 64
+FIESTA_FLUX_TIMES = 100
+FIESTA_MODEL = "fiesta_lc_smoke"
+FIESTA_CLI_MODEL = "fiesta_cli_smoke"
+# PRIOR_TEXT inside the production surrogate's trained support, which the
+# fiesta support guard holds the CLI's prior to
+FIESTA_PRIOR_TEXT = """\
+log10_mej_dyn = Uniform(minimum=-3., maximum=-1.7)
+log10_mej_wind = Uniform(minimum=-2., maximum=-0.9)
+KNphi = Uniform(minimum=15., maximum=75.)
+KNtheta = Uniform(minimum=0., maximum=90.)
+luminosity_distance = Uniform(minimum=1., maximum=200.)
+timeshift = Uniform(minimum=-0.2, maximum=0.2)
+"""
+# the flux kind's inputs and their supports; epsilon_e reaches 1, so the
+# epsilon_e + epsilon_B <= 1 gate closes on part of the prior, and
+# alphaWing x thetaCore passes pi/2 on another part
+FIESTA_FLUX_SUPPORT = {
+    "inclination_EM": (0.0, 0.5), "log10_E0": (49.0, 54.0),
+    "thetaCore": (0.01, 0.3), "alphaWing": (1.0, 10.0),
+    "log10_n0": (-4.0, 1.0), "p": (2.01, 2.9),
+    "log10_epsilon_e": (-3.0, 0.0), "log10_epsilon_B": (-5.0, -0.5)}
+FIESTA_MAG_TOL = 1e-4        # mag, card against CPU: the models' gate
+FIESTA_CPU_BATCH = 128
+FIESTA_FLUX_CPU_BATCH = 512
+FIESTA_CLI_NLIVE = 512
+# the seeded POSSIS spectrum: viewing angles, wavelengths, times
+POSSIS_SHAPE = (4, 500, 50)
+POSSIS_MODEL = "possis_smoke"
+POSSIS_FILTERS = ["ztfg", "ztfr", "ztfi", "2massj"]
+POSSIS_PRIOR_TEXT = """\
+supernova_mag_boost = Uniform(minimum=-1., maximum=1.)
+luminosity_distance = Uniform(minimum=10., maximum=200.)
+timeshift = Uniform(minimum=-0.5, maximum=0.5)
+"""
+POSSIS_INJECTION = {"supernova_mag_boost": 0.0, "luminosity_distance": 40.0,
+                    "timeshift": 0.0}
+# [marginalisation]: seeded GW posterior samples, percentile bands within
+# FIESTA_MAG_TOL of the port on the CPU
+MARG_SAMPLES = 2000
+# [resampling]: nested runs capped at this many iterations, and the
+# baryonic tables' mass grid (0.1 Msun steps)
+RESAMPLING_ITERATIONS = 40
+BARYONIC_GRID = (0.8, 2.6, 19)
+
+
+def smooth_basis(np, *axes, degree=4):
+    """Products of Legendre polynomials P_k of degree k < ``degree`` in
+    each axis's log, scaled to [-1, 1], each damped by 1 / (1 + k)^2:
+    [degree**len(axes), prod(len(axis))]."""
+    from numpy.polynomial import legendre
+
+    per_axis = []
+    for axis in axes:
+        x = np.log(axis)
+        x = 2.0 * (x - x[0]) / (x[-1] - x[0]) - 1.0
+        per_axis.append(np.stack([legendre.legval(x, np.eye(degree)[k])
+                                  / (1.0 + k) ** 2 for k in range(degree)]))
+    basis = per_axis[0]
+    for b in per_axis[1:]:
+        basis = np.einsum("ai,bj->abij", basis, b).reshape(
+            basis.shape[0] * b.shape[0], -1)
+    return basis.astype(np.float32)
+
+
+def seeded_mlp(np, rng, dims, basis, stacks=()):
+    """(kernels, biases) of a ReLU MLP with N(0, 1/d_in) weights whose last
+    layer maps onto ``basis`` [K, n_out]: each output row a smooth curve
+    (in time, and in frequency for the flux kind), as a trained
+    surrogate's are; ``stacks`` leads every shape (one net a filter)."""
+    def normal(*shape):
+        return rng.standard_normal(stacks + shape, dtype=np.float32)
+
+    kernels = [normal(a, b) / np.float32(np.sqrt(a))
+               for a, b in zip(dims[:-2], dims[1:-1])]
+    biases = [0.1 * normal(b) for b in dims[1:-1]]
+    k = basis.shape[0]
+    kernels.append(normal(dims[-2], k) / np.float32(np.sqrt(dims[-2] * k))
+                   @ basis)
+    biases.append(0.1 * normal(k) @ basis / np.float32(np.sqrt(k)))
+    return tuple(kernels), tuple(biases)
+
+
+def fiesta_lightcurve_fields(np, name, seed=14):
+    """The numpy fields of a lightcurve-kind FiestaSurrogateData at the
+    production Bu2019lm surrogate's filters, parameters, supports and time
+    grid: per-filter MLPs P -> H -> H -> T (H = FIESTA_HIDDEN), each
+    output a smooth curve in log time, scaled to absolute magnitudes
+    around -17..-9."""
+    with np.load(ARTIFACT) as z:
+        filters = tuple(str(f) for f in z["filters"])
+        names = tuple(str(p) for p in z["parameter_names"])
+        lo, hi, times = z["param_mins"], z["param_maxs"], z["tt"]
+    rng = np.random.default_rng(seed)
+    n_f, n_t = len(filters), len(times)
+    kernels, biases = seeded_mlp(
+        np, rng, [len(names), FIESTA_HIDDEN, FIESTA_HIDDEN, n_t],
+        smooth_basis(np, times), stacks=(n_f,))
+    return dict(
+        name=name, kind="lightcurve", parameter_names=names,
+        parameter_distributions={n: (float(a), float(b))
+                                 for n, a, b in zip(names, lo, hi)},
+        times=times, x_min=lo, x_max=hi, kernels=kernels, biases=biases,
+        y_min=np.full((n_f, n_t), -17.0), y_max=np.full((n_f, n_t), -9.0),
+        filters=filters)
+
+
+def fiesta_flux_fields(np, seed=15):
+    """The numpy fields of a flux-kind FiestaSurrogateData on TrPi2018's
+    parameters with alphaWing: one MLP 8 -> H -> H -> Nu x T whose output
+    is a smooth surface in log frequency and log time (a spectrum, as a
+    trained surrogate's), log10 F_nu [mJy at 10 pc] around 10..14, on
+    FIESTA_NU frequencies over 1e9 to 1e18 Hz (the GRB filters redshifted)
+    and FIESTA_FLUX_TIMES times in 0.05-40 d."""
+    names = tuple(FIESTA_FLUX_SUPPORT)
+    lo, hi = (np.array([v[i] for v in FIESTA_FLUX_SUPPORT.values()])
+              for i in (0, 1))
+    rng = np.random.default_rng(seed)
+    nus = np.geomspace(1e9, 1e18, FIESTA_NU)
+    times = np.geomspace(0.05, 40.0, FIESTA_FLUX_TIMES)
+    n_out = FIESTA_NU * FIESTA_FLUX_TIMES
+    kernels, biases = seeded_mlp(
+        np, rng, [len(names), FIESTA_HIDDEN, FIESTA_HIDDEN, n_out],
+        smooth_basis(np, nus, times))
+    return dict(
+        name="fiesta_flux_smoke", kind="flux", parameter_names=names,
+        parameter_distributions=dict(FIESTA_FLUX_SUPPORT), times=times,
+        x_min=lo, x_max=hi, kernels=kernels, biases=biases,
+        y_min=np.full(n_out, 10.0), y_max=np.full(n_out, 14.0), nus=nus)
+
+
+def logl_profile(torch, phase, fn, u, batches):
+    """[phase] lines: wall ms (host clock over >= 2 s of back-to-back
+    calls), evals/s, device-busy ms, launches and idle share of ``fn`` at
+    each batch size, and the peak memory of one call."""
+    for b in batches:
+        ub = u[:b]
+        fn(ub)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        fn(ub)
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        ms, calls, round_ms = throughput(torch, lambda: fn(ub))
+        busy, n_launch, top, _, _ = device_profile(torch, lambda: fn(ub))
+        say(phase, batch=b, calls=calls, wall_ms=f"{ms:.4f}",
+            evals_per_s=f"{b / (ms / 1e3):.1f}",
+            evals_per_s_rounds=",".join(
+                f"{b / (r / 1e3):.1f}" for r in round_ms),
+            device_busy_ms=f"{busy:.4f}",
+            idle_share=f"{1.0 - busy / ms:.4f}", kernel_launches=n_launch,
+            peak_mem_mib=f"{peak_mb:.1f}", base_mem_mib=f"{base_mb:.1f}",
+            top=top)
+
+
+def compare_mags(torch, phase, got, want):
+    """Card magnitudes against the CPU's: inf in the same places, the rest
+    within FIESTA_MAG_TOL; returns (max |dmag|, finite count)."""
+    got = got.cpu()
+    if got.shape != want.shape or not torch.equal(torch.isinf(got),
+                                                  torch.isinf(want)):
+        raise RuntimeError(f"[{phase}] inf positions differ between the card "
+                           "and the CPU")
+    ok = torch.isfinite(want)
+    if not bool(ok.any()) or torch.isnan(got).any():
+        raise RuntimeError(f"[{phase}] no finite magnitude, or NaN")
+    dmag = float((got - want)[ok].abs().max())
+    if dmag > FIESTA_MAG_TOL:
+        raise RuntimeError(f"[{phase}] the card's magnitudes are {dmag} off "
+                           "the CPU's")
+    return dmag, int(ok.sum())
+
+
+def fiesta_lc(np, torch, gen, tmp):
+    """[fiesta_lc]: the lightcurve-kind surrogate at production shapes
+    through EMAnalysis.batched_logl at B = BATCH and the sampler's batch,
+    on photometry it makes at INJECTION; the card against the port on the
+    CPU at B = FIESTA_CPU_BATCH. Returns (fields, photometry path)."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.models import (fiesta_from_numpy,
+                                       make_fiesta_source_model)
+
+    t0 = time.time()
+    fields = fiesta_lightcurve_fields(np, FIESTA_MODEL)
+    data = fiesta_from_numpy(fields, device=DEVICE)
+    build_s = time.time() - t0
+    make_fiesta_source_model(FIESTA_MODEL, data)
+    filters = list(fields["filters"])
+    data_path = os.path.join(tmp, "fiesta_injection.dat")
+    prior_path = os.path.join(tmp, "fiesta.prior")
+    with open(prior_path, "w") as f:
+        f.write(FIESTA_PRIOR_TEXT)
+    synthetic_photometry(np, torch, FIESTA_MODEL, filters, data_path,
+                         INJECTION, sample_times=(0.2, 14.0, 100),
+                         epochs=(0.5, 12.0))
+    cfg = EMAnalysisConfig(
+        model=FIESTA_MODEL, prior_file=prior_path, light_curve_data=data_path,
+        trigger_time=TRIGGER_MJD, data_tmax=12.5, tmin=0.2, tmax=14.0,
+        filters=filters, outdir=os.path.join(tmp, "fiesta_outdir"))
+    analysis = EMAnalysis(cfg, device=DEVICE)
+    u = analysis.priors.sample_units(gen, BATCH)
+    reset_launches()
+    logl = analysis.batched_logl(u)
+    torch.cuda.synchronize()
+    if kernel_launches() != (0, 0, 0):
+        raise RuntimeError(f"[fiesta_lc] launched K1-K3 {kernel_launches()}")
+    if logl.shape != (BATCH,) or torch.isnan(logl).any():
+        raise RuntimeError(f"bad fiesta logL {logl.shape}")
+    usable = logl > -1e29
+    logl_inj = float(analysis.batched_logl(
+        injection_units(analysis.priors, INJECTION))[0])
+    if not (float(usable.float().mean()) > 0.5
+            and logl_inj > float(logl[usable].median())):
+        raise RuntimeError(f"[fiesta_lc] finite share "
+                           f"{float(usable.float().mean())}, injection logL "
+                           f"{logl_inj}")
+    logl_profile(torch, "fiesta_lc", analysis.batched_logl, u,
+                 (BATCH, SAMPLER_BATCH))
+
+    # the card against the port on the CPU, on the same live points
+    on_cpu = EMAnalysis(cfg, device="cpu")
+    u_small = u[:FIESTA_CPU_BATCH]
+    params = analysis.priors.transform(u_small)
+    dmag, n_fin = compare_mags(
+        torch, "fiesta_lc", analysis.model(params)[1],
+        on_cpu.model({k: v.cpu() for k, v in params.items()})[1])
+    got = analysis.batched_logl(u_small).cpu()
+    want = on_cpu.batched_logl(u_small.cpu())
+    if not torch.equal(got > -1e29, want > -1e29):
+        raise RuntimeError("[fiesta_lc] sentinels differ from the CPU's")
+    ok = want > -1e29
+    dlogl = (got - want)[ok].abs()
+    if bool((dlogl > LOGL_ATOL + LOGL_RTOL * want[ok].abs()).any()):
+        raise RuntimeError(f"[fiesta_lc] logL {float(dlogl.max())} off the "
+                           "CPU's")
+    say("fiesta_lc", filters=len(filters), parameters=len(
+        fields["parameter_names"]), hidden=FIESTA_HIDDEN,
+        times=len(fields["times"]), build_s=f"{build_s:.3f}",
+        finite_share=f"{float(usable.float().mean()):.4f}",
+        k1_k2_k3_launches="0,0,0", cpu_batch=FIESTA_CPU_BATCH,
+        max_abs_dmag_vs_cpu=f"{dmag:.3e}", finite_mags=n_fin,
+        max_abs_dlogl_vs_cpu=f"{float(dlogl.max()):.3e}",
+        logl_injection=f"{logl_inj:.3f}",
+        logl_median=f"{float(logl[usable].median()):.3f}")
+    return fields, data_path
+
+
+def fiesta_flux(np, torch, gen):
+    """[fiesta_flux]: the flux-kind surrogate at B = BATCH at the GRB
+    filters' host-frame frequencies and over their quadrature (350 Mpc),
+    with the GRB gate: the same count of gated points on the CPU, and
+    magnitudes within FIESTA_MAG_TOL of the port on the CPU at B =
+    FIESTA_FLUX_CPU_BATCH."""
+    from nmma_tpu_torch.models import DetectorLightCurveModel
+    from nmma_tpu_torch.models.fiesta import fiesta_from_numpy, grb_gate
+
+    fields = fiesta_flux_fields(np)
+    data = fiesta_from_numpy(fields, device=DEVICE)
+    det = DetectorLightCurveModel("TrPi2018", GRB_FILTERS, device=DEVICE)
+    z = float(det.cosmology.redshift_at_dl(torch.tensor(350.0)))
+    lo = torch.tensor([v[0] for v in FIESTA_FLUX_SUPPORT.values()],
+                      device=DEVICE)
+    hi = torch.tensor([v[1] for v in FIESTA_FLUX_SUPPORT.values()],
+                      device=DEVICE)
+    theta = lo + (hi - lo) * torch.rand((BATCH, len(lo)), generator=gen,
+                                        device=DEVICE)
+    params = {k: theta[:, i] for i, k in enumerate(FIESTA_FLUX_SUPPORT)}
+    t_days = torch.tensor(np.geomspace(0.05, 40.0, 64), dtype=torch.float32,
+                          device=DEVICE)
+    nu_host = (det.nu_0s * (1 + z)).expand(BATCH, -1).contiguous()
+    nu_nodes = (det.nu_nodes * (1 + z)).expand(BATCH, -1, -1).contiguous()
+    forms = {"point": (nu_host, None, None),
+             "banded": (None, nu_nodes, det.nu_weights)}
+    n_cpu = FIESTA_FLUX_CPU_BATCH
+    cpu_params = {k: v[:n_cpu].cpu() for k, v in params.items()}
+    gated = int((~grb_gate(params)).sum())
+    gated_cpu = int((~grb_gate({k: v.cpu() for k, v in params.items()})
+                     ).sum())
+    if gated_cpu != gated or not 0 < gated < BATCH:
+        raise RuntimeError(f"[fiesta_flux] gated points: card {gated}, CPU "
+                           f"{gated_cpu} of {BATCH}")
+    for form, (nh, nn, nw) in forms.items():
+        reset_launches()
+        mags = data.magnitudes(params, t_days, nh, nn, nw)
+        torch.cuda.synchronize()
+        if kernel_launches() != (0, 0, 0) or mags.shape != (
+                BATCH, len(GRB_FILTERS), len(t_days)):
+            raise RuntimeError(f"[fiesta_flux] {form}: {mags.shape}, K1-K3 "
+                               f"{kernel_launches()}")
+        row_inf = torch.isinf(mags).all(-1).all(-1)
+        if int(row_inf.sum()) != gated:
+            raise RuntimeError(f"[fiesta_flux] {form}: {int(row_inf.sum())} "
+                               f"all-inf live points, {gated} gated")
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: data.magnitudes(params, t_days, nh, nn,
+                                                    nw), rounds=5,
+                     launches=3)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        want = data.magnitudes(
+            cpu_params, t_days.cpu(), None if nh is None else nh[:n_cpu].cpu(),
+            None if nn is None else nn[:n_cpu].cpu(),
+            None if nw is None else nw.cpu())
+        dmag, n_fin = compare_mags(torch, "fiesta_flux",
+                                   mags[:n_cpu], want)
+        say("fiesta_flux", form=form, batch=BATCH, parameters=len(lo),
+            frequencies=FIESTA_NU, times=FIESTA_FLUX_TIMES,
+            hidden=FIESTA_HIDDEN, ms=f"{ms:.4f}",
+            evals_per_s=f"{BATCH / (ms / 1e3):.1f}",
+            peak_mem_mib=f"{peak_mb:.1f}", gated=gated, gated_cpu=gated_cpu,
+            cpu_batch=n_cpu, max_abs_dmag_vs_cpu=f"{dmag:.3e}",
+            finite_mags=n_fin,
+            k1_k2_k3_launches="0,0,0")
+
+
+def write_fiesta_format_dir(directory, fields, name):
+    """fiesta's artifact layout: ``{name}_metadata.pkl`` and one pickled
+    flax parameter tree a filter."""
+    import pickle
+
+    os.makedirs(directory)
+    meta = {"times": fields["times"],
+            "parameter_names": list(fields["parameter_names"]),
+            "parameter_distributions": fields["parameter_distributions"],
+            "filters": list(fields["filters"]),
+            "X_scaler": {"min_val": fields["x_min"],
+                         "max_val": fields["x_max"]},
+            "y_scaler": {f: {"min_val": fields["y_min"][i],
+                             "max_val": fields["y_max"][i]}
+                         for i, f in enumerate(fields["filters"])}}
+    with open(os.path.join(directory, f"{name}_metadata.pkl"), "wb") as f:
+        pickle.dump(meta, f)
+    for i, filt in enumerate(fields["filters"]):
+        tree = {"params": {f"Dense_{k}": {"kernel": w[i], "bias": b[i]}
+                           for k, (w, b) in enumerate(zip(
+                               fields["kernels"], fields["biases"]))}}
+        with open(os.path.join(directory, f"{filt}.pkl"), "wb") as f:
+            pickle.dump(tree, f)
+
+
+def fiesta_cli(np, torch, fields, data_path, tmp):
+    """[fiesta_cli]: lightcurve-analysis --fiesta-surrogates-dir on a
+    fiesta-format directory of the [fiesta_lc] surrogate, nested sampling to
+    convergence at nlive FIESTA_CLI_NLIVE on its photometry: seconds, logZ
+    and each parameter's 90% interval beside the injection (printed; a
+    seeded random network need not make every parameter identifiable)."""
+    from nmma_tpu_torch.cli import lightcurve_analysis
+
+    surdir = os.path.join(tmp, "fiesta_surrogates")
+    t0 = time.time()
+    write_fiesta_format_dir(surdir, fields, FIESTA_CLI_MODEL)
+    write_s = time.time() - t0
+    prior = os.path.join(tmp, "fiesta_cli.prior")
+    with open(prior, "w") as f:
+        f.write(FIESTA_PRIOR_TEXT)
+    args = ["--model", FIESTA_CLI_MODEL, "--fiesta-surrogates-dir", surdir,
+            "--prior", prior, "--light-curve-data", data_path,
+            "--trigger-time", str(TRIGGER_MJD), "--tmin", "0.2",
+            "--tmax", "14.0", "--filters", ",".join(fields["filters"]),
+            "--nlive", str(FIESTA_CLI_NLIVE), "--n-delete", "128",
+            "--walks", "8", "--dlogz", "0.5",
+            "--outdir", os.path.join(tmp, "fiesta_cli"),
+            "--label", "fiesta_cli"]
+    reset_launches()
+    t0 = time.time()
+    analysis = lightcurve_analysis.main(args)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    result = analysis.result
+    if kernel_launches() != (0, 0, 0) or not math.isfinite(result.logz) \
+            or result.niter >= analysis.config.sampler.max_iter:
+        raise RuntimeError(f"[fiesta_cli] logZ {result.logz} after "
+                           f"{result.niter} iterations, K1-K3 "
+                           f"{kernel_launches()}")
+    post = analysis.posterior_samples()
+    intervals = {k: np.quantile(post[k], [0.05, 0.95])
+                 for k in analysis.priors.sampled_names}
+    inside = {k: bool(lo <= INJECTION[k] <= hi)
+              for k, (lo, hi) in intervals.items()}
+    say("fiesta_cli", logz=f"{result.logz:.4f}",
+        logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
+        likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
+        write_dir_s=f"{write_s:.2f}", nlive=FIESTA_CLI_NLIVE,
+        injection_inside_90=sum(inside.values()), of=len(inside),
+        **{f"{k}_90": f"{lo:.4f}..{hi:.4f}"
+           for k, (lo, hi) in intervals.items()})
+
+
+def skymap_columns(np, seed=1, base_order=2, nodes=10):
+    """A multi-order sky map: every pixel of ``base_order``, the first 24
+    split into their 4 children one order deeper, with the four cos-iota
+    ``*_SAMPLES`` layers. A copy of tests/test_torch_fits.py:skymap_columns
+    (which imports JAX): keep the two in step."""
+    rng = np.random.default_rng(seed)
+    n_base = 12 * 4**base_order
+    split = np.arange(24)
+    uniq = [4 ** (base_order + 1) + i for i in range(n_base)
+            if i not in split]
+    uniq += [4 ** (base_order + 2) + 4 * i + k for i in split
+             for k in range(4)]
+    uniq = np.asarray(uniq, dtype=np.int64)
+    n = len(uniq)
+    mu = rng.uniform(30.0, 50.0, (n, nodes))
+    sigma = rng.uniform(5.0, 12.0, (n, nodes))
+    return {"UNIQ": uniq,
+            "PROBDENSITY_SAMPLES": rng.uniform(0.1, 2.0, (n, nodes)),
+            "DISTMU_SAMPLES": mu, "DISTSIGMA_SAMPLES": sigma,
+            "DISTNORM_SAMPLES": 1.0 / (mu**2 + sigma**2)}
+
+
+def fits_phase(np, torch, tmp):
+    """[fits]: a multi-order sky map and an m4opt limit map written with
+    write_bintable, then lightcurve-analysis --fits-file --dL --ra --dec
+    --detection-limit-fits-file on the [cli] configuration (Bu2019lm
+    through K1, KNtheta from the sky map's inclination prior) with
+    --skip-sampling on the card and on the CPU: the inclination prior's
+    nodes and the detection limit equal; then the card's analysis capped at
+    RESAMPLING_ITERATIONS iterations: K1 launches 1 + iterations x walks."""
+    import dataclasses
+
+    from nmma_tpu_torch.cli import lightcurve_analysis
+    from nmma_tpu_torch.io.fits import write_bintable
+
+    root = os.path.join(tmp, "fits")
+    os.makedirs(root)
+    sky, limits = os.path.join(root, "skymap.fits"), \
+        os.path.join(root, "m4opt.fits")
+    write_bintable(sky, skymap_columns(np), extra_header={"MOC": True})
+    # limits fainter than the injection's photometry: the CLI reads the map
+    # after it has made the injection (as the JAX package does), and a
+    # detection fainter than the limit sends the truncated Gaussian's
+    # -log Phi(b) to large positive logL (ROADMAP fault 3e)
+    nside = 64
+    write_bintable(limits, {"LIMMAG": np.random.default_rng(8).uniform(
+        27.0, 28.0, 12 * nside**2)},
+        extra_header={"NSIDE": nside, "ORDERING": "NESTED"})
+    _, config_path = cli_config(root)
+    prior = os.path.join(root, "sky.prior")
+    with open(prior, "w") as f:
+        f.write("".join(line + "\n" for line in PRIOR_TEXT.splitlines()
+                        if not line.startswith("KNtheta")))
+    args = [config_path, "--prior", prior, "--fits-file", sky, "--dL", "40",
+            "--ra", "197.45", "--dec", "-23.38",
+            "--detection-limit-fits-file", limits, "--skip-sampling"]
+    t0 = time.time()
+    card = lightcurve_analysis.main(args + ["--outdir",
+                                            os.path.join(root, "card")])
+    setup_s = time.time() - t0
+    cpu = lightcurve_analysis.main(
+        args + ["--outdir", os.path.join(root, "cpu")], device="cpu")
+    incl, incl_cpu = card.priors["inclination_EM"], cpu.priors[
+        "inclination_EM"]
+    if not (np.array_equal(incl.xx, incl_cpu.xx)
+            and np.array_equal(incl.yy, incl_cpu.yy)
+            and card.config.detection_limit == cpu.config.detection_limit
+            and "inclination_EM" in card.priors.sampled_names):
+        raise RuntimeError("[fits] the card's inclination prior or detection "
+                           "limit differs from the CPU's")
+    card.config.sampler = dataclasses.replace(
+        card.config.sampler, max_iter=RESAMPLING_ITERATIONS)
+    reset_launches()
+    t0 = time.time()
+    result = card.run(verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    walks = card.config.sampler.walks
+    expected = (1 + result.niter * walks, 0, 0)
+    if kernel_launches() != expected or not math.isfinite(result.logz) \
+            or result.niter != RESAMPLING_ITERATIONS:
+        raise RuntimeError(f"[fits] logZ {result.logz} after {result.niter} "
+                           f"iterations, K1-K3 {kernel_launches()} (expected "
+                           f"{expected})")
+    say("fits", skymap_rows=len(skymap_columns(np)["UNIQ"]),
+        limit_nside=nside, inclination_nodes=len(incl.xx),
+        inclination_max=f"{incl.maximum:.6f}",
+        detection_limit=f"{card.config.detection_limit:.4f}",
+        setup_s=f"{setup_s:.2f}", iterations=result.niter,
+        logz=f"{result.logz:.4f}", seconds=f"{seconds:.2f}",
+        k1_launches=kernel_launches()[0],
+        k1_expected=f"1+{result.niter}x{walks}")
+
+
+def write_possis_ascii(np, path, seed=16):
+    """A seeded POSSIS ASCII spectral series at 10 pc (POSSIS_SHAPE angles,
+    wavelengths and times): a cooling blackbody-like shape with a 5%
+    ripple, dimmer with the viewing angle."""
+    n_obs, n_wave, n_time = POSSIS_SHAPE
+    rng = np.random.default_rng(seed)
+    wave = np.geomspace(1500.0, 25000.0, n_wave)
+    time_d = np.linspace(0.3, 13.0, n_time)
+    temp = 6000.0 * (time_d / 0.3) ** -0.4
+    x = 1.4388e8 / (wave[None, :] * temp[:, None])
+    shape = 1.0 / (wave[None, :] ** 5 * np.expm1(np.minimum(x, 700.0)))
+    dt = time_d[1] - time_d[0]
+    with open(path, "w") as fh:
+        fh.write(f"{n_obs}\n{n_wave}\n{n_time} {time_d[0] - 0.5 * dt} "
+                 f"{time_d[0] + (n_time - 0.5) * dt}\n")
+        for i in range(n_obs):
+            flam = 1e-3 * (1.0 - 0.15 * i) * shape * np.abs(
+                1.0 + 0.05 * rng.standard_normal(shape.shape))
+            np.savetxt(fh, np.column_stack([wave, flam.T]))
+
+
+def possis_phase(np, torch, gen, tmp):
+    """[possis]: a seeded POSSIS ASCII spectrum through
+    spectral_model_from_file, then EMAnalysis.batched_logl at B = BATCH on
+    photometry it makes at POSSIS_INJECTION, the card against the CPU at
+    B = 128 (measure_logl)."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.models import spectral_model_from_file
+
+    spectrum = os.path.join(tmp, "possis_spectra.txt")
+    t0 = time.time()
+    write_possis_ascii(np, spectrum)
+    model = spectral_model_from_file(POSSIS_MODEL, spectrum)
+    load_s = time.time() - t0
+    data_path = os.path.join(tmp, "possis_injection.dat")
+    prior_path = os.path.join(tmp, "possis.prior")
+    with open(prior_path, "w") as f:
+        f.write(POSSIS_PRIOR_TEXT)
+    synthetic_photometry(np, torch, POSSIS_MODEL, POSSIS_FILTERS, data_path,
+                         POSSIS_INJECTION, sample_times=(0.4, 13.0, 50),
+                         epochs=(1.0, 12.0))
+    cfg = EMAnalysisConfig(
+        model=POSSIS_MODEL, prior_file=prior_path, light_curve_data=data_path,
+        trigger_time=TRIGGER_MJD, tmin=0.4, tmax=13.0, n_tsteps=50,
+        filters=POSSIS_FILTERS, outdir=os.path.join(tmp, "possis_outdir"))
+    analysis = EMAnalysis(cfg, device=DEVICE)
+    on_cpu = EMAnalysis(cfg, device="cpu")
+    u = analysis.priors.sample_units(gen, BATCH)
+    say("possis", angles=POSSIS_SHAPE[0], wavelengths=POSSIS_SHAPE[1],
+        times=POSSIS_SHAPE[2], banded=model.banded, load_s=f"{load_s:.3f}")
+    measure_logl(torch, "possis", POSSIS_MODEL, analysis.batched_logl,
+                 on_cpu.batched_logl, u, float(analysis.batched_logl(
+                     injection_units(analysis.priors, POSSIS_INJECTION))[0]))
+
+
+def marginalisation_phase(np, torch, eos_dir, tmp):
+    """[marginalisation]: lightcurve-marginalisation on MARG_SAMPLES seeded
+    GW posterior samples (a csv posterior with the ejecta nuisances), the
+    [eos] tables and the production Bu2019lm surrogate: one K1 launch on
+    the card; the percentile bands within FIESTA_MAG_TOL of the port's run
+    on the CPU on the same draws."""
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+    from nmma_tpu_torch.post_processing import marginalisation
+
+    rng = np.random.default_rng(17)
+    n = MARG_SAMPLES
+    post = {"chirp_mass": rng.normal(1.1977, 0.002, n),
+            "mass_ratio": rng.uniform(0.7, 1.0, n),
+            "luminosity_distance": rng.normal(40.0, 5.0, n),
+            "theta_jn": rng.uniform(0.1, 0.6, n),
+            "ratio_zeta": rng.uniform(0.1, 0.3, n),
+            "alpha": rng.uniform(0.0, 1e-3, n),
+            "KNphi": rng.uniform(15.0, 75.0, n)}
+    csv = os.path.join(tmp, "gw_posterior.csv")
+    np.savetxt(csv, np.column_stack(list(post.values())), delimiter=",",
+               header=",".join(post), comments="")
+    with np.load(ARTIFACT) as z:
+        filters = ",".join(str(f) for f in z["filters"])
+    # the CPU run needs the surrogate's weights on the CPU
+    make_svd_source_model(MODEL + "_cpu",
+                          SVDModelData.load(ARTIFACT, device="cpu"))
+    args = ["--posterior-file", csv, "--eos-data", eos_dir,
+            "--filters", filters, "--tmin", "0.2", "--tmax", "14.0",
+            "--n-tstep", "50", "-n", str(n)]
+    reset_launches()
+    t0 = time.time()
+    out = marginalisation.main(args + ["--model", MODEL, "--outdir",
+                                       os.path.join(tmp, "marg_card")])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = kernel_launches()
+    t0 = time.time()
+    out_cpu = marginalisation.main(
+        args + ["--model", MODEL + "_cpu", "--outdir",
+                os.path.join(tmp, "marg_cpu")], device="cpu")
+    cpu_s = time.time() - t0
+    got = np.load(out, allow_pickle=True)["bands"]
+    want = np.load(out_cpu, allow_pickle=True)["bands"]
+    ok = np.isfinite(want)
+    if launches != (1, 0, 0) or got.shape != want.shape or not \
+            np.array_equal(np.isnan(got), np.isnan(want)) or \
+            ok.mean() < 0.5:
+        raise RuntimeError(f"[marginalisation] K1-K3 {launches}, bands "
+                           f"{got.shape} against {want.shape}, finite "
+                           f"{ok.mean()}")
+    dmag = float(np.abs(got[ok] - want[ok]).max())
+    if dmag > FIESTA_MAG_TOL:
+        raise RuntimeError(f"[marginalisation] bands {dmag} mag off the CPU")
+    say("marginalisation", samples=n, bands="x".join(map(str, got.shape)),
+        seconds=f"{seconds:.3f}", cpu_seconds=f"{cpu_s:.3f}",
+        k1_launches=launches[0], finite_share=f"{ok.mean():.4f}",
+        max_abs_dband_vs_cpu=f"{dmag:.3e}",
+        median_band_ztfg_peak=f"{np.nanmin(got[1, 1]):.3f}")
+
+
+def resampling_phase(np, torch, eos_dir, tmp):
+    """[resampling]: GWEMResampler on the [eos] macro set and
+    MaximumMassResampler on its baryonic tables, each a nested run capped
+    at RESAMPLING_ITERATIONS iterations on the card: seconds and a finite
+    logZ, no K1-K3 launch."""
+    from nmma_tpu_torch.eos import load_macro_eos_set
+    from nmma_tpu_torch.post_processing import (GWEMResampler,
+                                                MaximumMassResampler)
+
+    rng = np.random.default_rng(18)
+    n = 2000
+    gw = {"chirp_mass": rng.normal(1.1977, 0.001, n),
+          "mass_ratio": rng.uniform(0.7, 1.0, n),
+          "luminosity_distance": rng.normal(40.0, 4.0, n),
+          "EOS": rng.uniform(0.0, len(EOS_SLOPES), n)}
+    em = {"log10_mej_dyn": rng.normal(-2.2, 0.2, n),
+          "log10_mej_wind": rng.normal(-1.6, 0.2, n)}
+    q = rng.uniform(0.75, 1.0, n)
+    mm = {"chirp_mass": rng.normal(1.19, 0.005, n),
+          "eta_star": np.log(0.25 - q / (1 + q) ** 2 + 1e-6),
+          "EOS": rng.uniform(0.0, len(EOS_SLOPES), n),
+          "log10_mdisk": rng.normal(-1.3, 0.2, n),
+          "log10_mej_dyn": rng.normal(-2.3, 0.2, n)}
+    t0 = time.time()
+    gwem = GWEMResampler(gw, em, load_macro_eos_set(eos_dir))
+    gwem_setup = time.time() - t0
+    t0 = time.time()
+    maxmass = MaximumMassResampler(
+        mm, os.path.join(tmp, "baryonic", "macro"),
+        os.path.join(tmp, "baryonic", "micro"),
+        mass_grid=np.linspace(*BARYONIC_GRID))
+    maxmass_setup = time.time() - t0
+    for name, rs, setup_s, nlive in (("GWEMResampler", gwem, gwem_setup, 512),
+                                     ("MaximumMassResampler", maxmass,
+                                      maxmass_setup, 256)):
+        reset_launches()
+        t0 = time.time()
+        result, post = rs.run(nlive=nlive, max_iter=RESAMPLING_ITERATIONS)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        if not math.isfinite(result.logz) or kernel_launches() != (0, 0, 0) \
+                or result.niter != RESAMPLING_ITERATIONS:
+            raise RuntimeError(f"[resampling] {name}: logZ {result.logz} "
+                               f"after {result.niter}, K1-K3 "
+                               f"{kernel_launches()}")
+        say("resampling", resampler=name, nlive=nlive,
+            iterations=result.niter, likelihood_calls=result.ncall,
+            logz=f"{result.logz:.4f}", setup_s=f"{setup_s:.2f}",
+            seconds=f"{seconds:.2f}",
+            eos_median=f"{float(np.median(post['EOS'])):.3f}")
+
+
+def post_path(np, torch, tmp):
+    """The fiesta, FITS, POSSIS and post-processing phases, with the
+    [eos] tables under ``tmp``: [fiesta_lc], [fiesta_flux], [fiesta_cli],
+    [fits], [possis], [marginalisation], [resampling]."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(14)
+    t0 = time.time()
+    fields, data_path = fiesta_lc(np, torch, gen, tmp)
+    fiesta_flux(np, torch, gen)
+    fiesta_cli(np, torch, fields, data_path, tmp)
+    del fields
+    fits_phase(np, torch, tmp)
+    possis_phase(np, torch, gen, tmp)
+    eos_dir = os.path.join(tmp, "eos")
+    marginalisation_phase(np, torch, eos_dir, tmp)
+    resampling_phase(np, torch, eos_dir, tmp)
+    say("post_phases", seconds=f"{time.time() - t0:.2f}")
 
 
 def main() -> int:
@@ -3121,8 +3863,10 @@ def main() -> int:
     mcmc_path(np, torch, cli_posterior)
     em_models(np, torch, gen)
     lbol_path(np, torch)
-    k1_joint = joint_path(np, torch)
-    gw_path(np, torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
+        k1_joint = joint_path(np, torch, tmp)
+        gw_path(np, torch)
+        post_path(np, torch, tmp)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",

@@ -3,9 +3,12 @@ line, on the CUDA card.
 
 Port of ``nmma_tpu/cli/lightcurve_analysis.py`` (the reference's
 ``nmma.em.analysis:main`` and ``lbol_main``): config-file-first parsing,
-data or injection, prior shaping, model and likelihood assembly, nested
-sampling with checkpoint and resume or the ensemble MCMC
-(``--sampler mcmc``), result files; and the bolometric path. Run it as
+data or injection, prior shaping (with the sky map's inclination prior of
+``--fits-file`` and the m4opt limit of ``--detection-limit-fits-file``),
+model and likelihood assembly (SVD surrogates, and fiesta surrogates
+resolved by name under ``--fiesta-surrogates-dir``), nested sampling with
+checkpoint and resume or the ensemble MCMC (``--sampler mcmc``), result
+files; and the bolometric path. Run it as
 
     python -m nmma_tpu_torch.cli.lightcurve_analysis config.yaml [flags]
 
@@ -102,36 +105,25 @@ def _check_supported(args):
         raise _not_ported("--sampler neuralnet (mlmodel/)", 18)
     if args.sampler not in ("nmma-ns", "mcmc"):
         raise ValueError(f"unknown sampler {args.sampler!r}")
-    if args.fits_file:
-        raise _not_ported("--fits-file (io/fits.py)", 17)
-    if args.detection_limit_fits_file:
-        raise _not_ported("--detection-limit-fits-file (io/fits.py)", 17)
     if args.bestfit:
         raise _not_ported("--bestfit (plotting.py)", 19)
     if args.plot:
         raise _not_ported("--plot (plotting.py)", 19)
-    if args.fiesta_surrogates_dir:
-        raise _not_ported("fiesta surrogates (models/fiesta.py)", 14)
 
 
 def _single_run(args, device):
     from ..analysis import EMAnalysis, EMAnalysisConfig
-    from ..models import get_source_model
     from ..models.svd import SVDModelData, make_svd_source_model
 
     _check_supported(args)
     model_name = args.model
+    fiesta_data = None
     if args.svd_path:
         svd = SVDModelData.load(args.svd_path, device=device)
         model_name = make_svd_source_model(
             model_name, svd, mag_ncoeff=args.svd_mag_ncoeff).name
     else:
-        try:
-            get_source_model(model_name)
-        except KeyError:
-            # the JAX package resolves unknown names as fiesta surrogates
-            raise _not_ported(f"model {model_name!r}: fiesta surrogates "
-                              "(models/fiesta.py)", 14) from None
+        fiesta_data = _fiesta_source(args, device)
 
     data = None
     trigger_time = args.trigger_time or 0.0
@@ -139,6 +131,15 @@ def _single_run(args, device):
         data, _, trigger_time = data_from_injection(args, device)
     if args.injection_model and not args.injection:
         raise ValueError("--injection-model needs --injection")
+    if args.detection_limit_fits_file:
+        if args.ra is None or args.dec is None:
+            raise ValueError(
+                "--detection-limit-fits-file needs --ra and --dec")
+        from ..io.fits import detection_limit_from_m4opt_fits
+        args.detection_limit = detection_limit_from_m4opt_fits(
+            args.detection_limit_fits_file, args.ra, args.dec)
+        print(f"detection limit from m4opt map: "
+              f"{args.detection_limit:.2f} mag")
 
     n_tsteps = args.n_tsteps
     if args.tstep:
@@ -177,8 +178,15 @@ def _single_run(args, device):
             "--fetch-Ebv-from-dustmap needs the dustmaps SFD data, which "
             "requires network access unavailable in this environment; "
             "pass --Ebv-max or a fixed Ebv in the prior file instead")
-    analysis = EMAnalysis(cfg, data=data, priors=_shaped_priors(args),
-                          device=device)
+    priors = _sky_map_priors(args, _shaped_priors(args))
+    if fiesta_data is not None:
+        # the reference's FiestaModel raises when the prior reaches beyond
+        # the trained support (nmma/em/model.py:434-445): draws there would
+        # extrapolate the networks
+        from ..priors import load_prior_file
+        fiesta_data.check_vs_priors(
+            priors if priors is not None else load_prior_file(args.prior))
+    analysis = EMAnalysis(cfg, data=data, priors=priors, device=device)
     write_complete_config(args)
 
     if args.sampler == "mcmc":
@@ -252,6 +260,59 @@ def _shaped_priors(args):
     if args.redshift is not None:
         pd["redshift"] = DeltaFunction(peak=float(args.redshift),
                                        name="redshift")
+    return PriorDict(pd)
+
+
+def _fiesta_source(args, device):
+    """Resolve an unknown --model under --fiesta-surrogates-dir (or
+    $NMMA_FIESTA_SURROGATES) and register it (the reference's
+    FiestaKilonovaModel/FiestaGRBModel, nmma/em/model.py:734-888); returns
+    the FiestaSurrogateData behind the model, also when an earlier run in
+    this process registered it, or None for other models."""
+    from ..models import get_source_model
+    from ..models.fiesta import (FIESTA_ENV, load_fiesta_surrogate,
+                                 make_fiesta_source_model,
+                                 registered_fiesta_data)
+    fiesta_dir = args.fiesta_surrogates_dir or os.environ.get(FIESTA_ENV)
+    try:
+        get_source_model(args.model)
+        known = True
+    except KeyError:
+        known = False
+    if not known and fiesta_dir:
+        try:
+            fdata = load_fiesta_surrogate(
+                args.model, fiesta_dir,
+                filters=args.filters.split(",") if args.filters else None,
+                device=device)
+        except FileNotFoundError:
+            fdata = None
+        if fdata is not None:
+            make_fiesta_source_model(args.model, fdata)
+    return registered_fiesta_data(args.model)
+
+
+def _sky_map_priors(args, priors):
+    """``priors`` with inclination_EM from the sky map of --fits-file at
+    --dL (or the prior's fixed luminosity_distance) and --ra/--dec
+    (reference prior.py:80-171); unchanged without --fits-file."""
+    if not args.fits_file:
+        return priors
+    from ..priors import PriorDict, load_prior_file
+    from ..priors.astro import inclination_prior_from_fits
+    pd = dict(priors.priors) if priors is not None else \
+        dict(load_prior_file(args.prior).priors)
+    dL = args.dL
+    if dL is None:
+        dL = getattr(pd.get("luminosity_distance"), "peak", None)
+        if dL is None:
+            raise ValueError("--fits-file needs --dL or a delta-function "
+                             "luminosity_distance in the prior file")
+    pd["inclination_EM"] = inclination_prior_from_fits(
+        args.fits_file, dL=float(dL), ra=args.ra, dec=args.dec,
+        cosiota_node_num=args.cosiota_node_num)
+    print(f"inclination_EM prior built from {args.fits_file} at "
+          f"dL={float(dL):.1f} Mpc")
     return PriorDict(pd)
 
 

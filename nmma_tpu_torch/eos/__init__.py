@@ -1,7 +1,8 @@
 """EOS tables, the TOV solver, NEP and CSE table generation, and EOS
 constraints: the PyTorch counterparts of ``nmma_tpu.eos``'s modules on the
-joint GW + EM + EOS path. (``baryonic``, ``emulator`` and ``lec`` lie on
-other paths and are not ported yet.)"""
+joint GW + EM + EOS path, and the baryonic-mass tables of the
+maximum-mass resampler (``baryonic``). (``emulator`` and ``lec`` are not
+ported yet.)"""
 
 from .cse import cse_eos_family, cse_extend, mixed_low_density_eos
 from .eos import EOSTable, TabulatedEOSSet, load_macro_eos_set

@@ -279,20 +279,24 @@ def make_salt2_source_model(name, phase_days, wave_aa, m0_flam, m1_flam,
 
 def spectral_model_from_file(name, path, anchor=True):
     """Template file -> registered model: a sncosmo 3-column ASCII
-    template. POSSIS spectra (.h5 or ASCII) need io/radiative.py, which the
-    port does not have yet (ROADMAP item 17)."""
+    template, or a POSSIS .h5 or ASCII spectrum, whose first viewing
+    angle's I Stokes spectrum becomes the template
+    (nmma_tpu/models/spectral.py:270-296)."""
     if path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(
-            "POSSIS .h5 spectra need io/radiative.py, which nmma_tpu_torch "
-            "does not have yet (ROADMAP item 17)")
+        from ..io.radiative import read_possis_h5
+        time, _, wave, i_stokes, _ = read_possis_h5(path)
+        return make_spectral_source_model(name, time, wave, i_stokes[0],
+                                          anchor=anchor)
     try:
         phase, wave, flam = load_sncosmo_ascii_template(path)
     except ValueError as e:
         if "not rectangular" in str(e):
+            # a malformed 3-column template: its own diagnostic, not the
+            # POSSIS reader's parse error
             raise
-        raise NotImplementedError(
-            f"{path} is not a 3-column sncosmo template; POSSIS ASCII "
-            "spectra need io/radiative.py, which nmma_tpu_torch does not "
-            "have yet (ROADMAP item 17)") from e
+        from ..io.radiative import read_possis_ascii
+        time, _, wave, flux = read_possis_ascii(path)
+        return make_spectral_source_model(name, time, wave[0], flux[0],
+                                          anchor=anchor)
     return make_spectral_source_model(name, phase, wave, flam,
                                       anchor=anchor)

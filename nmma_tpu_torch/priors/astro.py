@@ -4,8 +4,9 @@ Port of ``nmma_tpu/priors/astro.py`` (the reference's ``nmma/em/prior.py``
 and ``adjust_priors_for_nmma``, nmma/core/base.py:198-231): the
 linear-decay extinction (Ebv) prior, Hubble priors, the composition step
 ``create_prior_from_args`` (prior file -> Hubble -> Ebv -> conditional
-inclination -> systematics), the HDF5 multivariate-Gaussian block and the
-replacement of ``NMMADummyPrior`` placeholders. All of it runs on the host
+inclination -> systematics), the sky-map inclination prior, the HDF5
+multivariate-Gaussian block and the replacement of ``NMMADummyPrior``
+placeholders. All of it runs on the host
 once; the priors it builds transform ``[B]`` tensors.
 """
 
@@ -86,11 +87,59 @@ def create_prior_from_args(prior_file, systematics=None, Ebv_max=0.5724,
 
 def inclination_prior_from_fits(fits_file, dL, ra=None, dec=None,
                                 cosiota_node_num=10, n_grid=1000):
-    """The skymap-FITS inclination prior needs the FITS reader
-    (``io/fits.py``), which is not in the port yet."""
-    raise NotImplementedError(
-        "inclination_prior_from_fits needs io/fits.py, which nmma_tpu_torch "
-        "does not have yet (ROADMAP item 17)")
+    """``Interped`` inclination_EM prior from a BAYESTAR-style sky map FITS
+    (``inclination_prior_from_fits``, nmma/em/prior.py:80-171; the JAX
+    package's nmma_tpu/priors/astro.py:91-148). The multi-order map's
+    per-pixel cos-iota-conditional distance layers (the PROBDENSITY,
+    DISTMU, DISTSIGMA and DISTNORM ``*_SAMPLES`` columns) are read with
+    the numpy FITS reader at the pixel of (ra, dec) in degrees, or of the
+    most probable pixel when they are None; then
+
+        p(u) = probdensity(u) distnorm(u) dL^2 N(dL; mu(u), sigma(u))
+        p(iota) = p(cos iota) |sin iota|, folded onto [0, pi/2]
+
+    with each layer PCHIP-interpolated over the cos-iota nodes. Host numpy
+    once; the prior transforms ``[B]`` tensors."""
+    from scipy.interpolate import PchipInterpolator
+    from scipy.stats import norm
+
+    from ..io.fits import read_bintable, skymap_pixel_index, uniq2nest
+
+    cols, _ = read_bintable(fits_file)
+    if "PROBDENSITY" in cols:                # scalar column (prior.py:86)
+        map_idx = int(np.argmax(cols["PROBDENSITY"]))
+    else:
+        map_idx = int(np.argmax(
+            np.atleast_2d(cols["PROBDENSITY_SAMPLES"]).mean(axis=1)))
+
+    if ra is not None and dec is not None and "UNIQ" in cols:
+        orders, nests = uniq2nest(cols["UNIQ"])
+        order = int(orders[map_idx])
+        target = skymap_pixel_index(ra, dec, 2 ** order)
+        nest_idxs = np.where(orders == order, nests, 0)
+        row = int(np.argmin(np.abs(nest_idxs - target)))
+    else:
+        row = map_idx
+
+    nodes = np.cos(np.linspace(0.0, np.pi, int(cosiota_node_num)))[::-1]
+    layer = {name: PchipInterpolator(
+        nodes, np.atleast_2d(cols[f"{name}_SAMPLES"])[row][::-1])
+        for name in ("PROBDENSITY", "DISTMU", "DISTSIGMA", "DISTNORM")}
+
+    u = np.linspace(-1.0, 1.0, n_grid)
+    prob_u = (layer["PROBDENSITY"](u) * layer["DISTNORM"](u) * dL**2
+              * norm(layer["DISTMU"](u), layer["DISTSIGMA"](u)).pdf(dL))
+    iota = np.arccos(u)                       # descending pi -> 0
+    prob_iota = prob_u * np.abs(np.sin(iota))
+
+    # fold [pi/2, pi] onto [0, pi/2]: the EM side cannot tell iota from
+    # pi - iota
+    lt = iota < np.pi / 2
+    iota_em = iota[lt]
+    prob_em = prob_iota[lt] + prob_iota[~lt][::-1]
+    order_ix = np.argsort(iota_em)
+    return Interped(iota_em[order_ix], prob_em[order_ix], minimum=0.0,
+                    maximum=np.pi / 2, name="inclination_EM")
 
 
 def h5_to_multivar_prior(h5_file_path, priors=None):

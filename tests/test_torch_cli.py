@@ -19,7 +19,10 @@ file and its checkpoint, and ``--skip-sampling`` regenerates its logZ from
 the checkpoint bit for bit. ``--sampler mcmc`` writes the JAX package's
 result keys in both packages, and ``EMAnalysis.run_mcmc`` agrees with a
 nested run on the posterior medians. Each option whose module the port
-does not have yet raises NotImplementedError naming its ROADMAP item.
+does not have yet raises NotImplementedError naming its ROADMAP item; the
+sky-map options (--fits-file, --detection-limit-fits-file) and
+--fiesta-surrogates-dir give the JAX package's priors, detection limit and
+logL.
 """
 
 import configparser
@@ -34,7 +37,6 @@ import yaml
 import nmma_tpu.cli.lightcurve_analysis as j_cli
 import nmma_tpu_torch.cli.lightcurve_analysis as t_cli
 from nmma_tpu_torch import injections as t_injections
-from nmma_tpu_torch.priors import astro as t_astro
 
 torch.set_num_threads(1)
 
@@ -145,11 +147,8 @@ def test_cli_full_run_and_skip_sampling(config):
 
 UNPORTED = {
     "neuralnet": (["--sampler", "neuralnet"], 18),
-    "fits": (["--fits-file", "skymap.fits"], 17),
-    "limit_fits": (["--detection-limit-fits-file", "limits.fits"], 17),
     "bestfit": (["--bestfit"], 19),
     "plot": (["--plot"], 19),
-    "fiesta_dir": (["--fiesta-surrogates-dir", "surrogates"], 14),
     "ztf": (["--ztf-sampling"], 19),
 }
 
@@ -163,13 +162,68 @@ def test_unported_options_name_their_item(config, case):
                     *flags], device="cpu")
 
 
+def sky_map_flags(root, case):
+    """The flags of the sky-map and fiesta options on the [cli] config,
+    with the files they read written under ``root``."""
+    from nmma_tpu_torch.io.fits import write_bintable
+    from test_torch_fits import skymap_columns
+
+    if case == "fits":
+        write_bintable(str(root / "skymap.fits"), skymap_columns(),
+                       extra_header={"MOC": True})
+        return ["--fits-file", str(root / "skymap.fits"), "--dL", "40",
+                "--ra", "197.45", "--dec", "-23.38"]
+    if case == "limit_fits":
+        limmag = np.random.default_rng(8).uniform(19.0, 21.0, 12 * 16**2)
+        write_bintable(str(root / "limits.fits"), {"LIMMAG": limmag},
+                       extra_header={"NSIDE": 16, "ORDERING": "NESTED"})
+        return ["--detection-limit-fits-file", str(root / "limits.fits"),
+                "--ra", "120.0", "--dec", "-30.0"]
+    # with --svd-path the surrogate is the SVD one in both packages
+    (root / "surrogates").mkdir(exist_ok=True)
+    return ["--fiesta-surrogates-dir", str(root / "surrogates")]
+
+
+@pytest.mark.parametrize("case", ["fits", "limit_fits", "fiesta_dir"])
+def test_sky_map_and_fiesta_options_match_jax(config, case):
+    """--fits-file (the sky map's inclination prior at --dL, --ra, --dec),
+    --detection-limit-fits-file (the m4opt limit at --ra, --dec) and
+    --fiesta-surrogates-dir beside --svd-path, in both packages with
+    --skip-sampling: the same priors, detection limit and logL at 64
+    seeded unit points (rtol 1e-4, atol 1e-2, identical sentinels)."""
+    root, path = config
+    flags = sky_map_flags(root, case)
+    j_ana = j_cli.main([path, "--skip-sampling", "--outdir",
+                        str(root / f"{case}_jax"), *flags])
+    t_ana = t_cli.main([path, "--skip-sampling", "--outdir",
+                        str(root / f"{case}_port"), *flags], device="cpu")
+    assert t_ana.priors.sampled_names == j_ana.priors.sampled_names
+    assert t_ana.config.detection_limit == j_ana.config.detection_limit
+    if case == "fits":
+        got = t_ana.priors["inclination_EM"]
+        want = j_ana.priors.priors["inclination_EM"]
+        np.testing.assert_allclose(got.xx, np.asarray(want.xx), rtol=1e-6)
+        np.testing.assert_allclose(got.yy, np.asarray(want.yy), rtol=1e-6)
+    if case == "limit_fits":
+        assert 19.0 <= t_ana.config.detection_limit <= 21.0
+    u = np.random.default_rng(65).uniform(
+        size=(64, t_ana.priors.ndim)).astype(np.float32)
+    want = np.asarray(j_ana.batched_logl(jnp.asarray(u)))
+    got = t_ana.batched_logl(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got > -1e29, want > -1e29)
+    ok = want > -1e29
+    assert ok.sum() >= 12
+    np.testing.assert_allclose(got[ok], want[ok], rtol=RTOL, atol=ATOL)
+
+
 def test_unported_entry_points_name_their_items(config, tmp_path):
     root, path = config
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        t_cli.main([path, "--svd-path", "", "--model", "Fiesta_kn_model",
-                    "--skip-sampling"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        t_astro.inclination_prior_from_fits("skymap.fits", dL=40.0)
+    # a model name neither registered nor found as a fiesta surrogate is
+    # unknown in both packages
+    for main, kwargs in ((j_cli.main, {}), (t_cli.main, {"device": "cpu"})):
+        with pytest.raises(KeyError, match="Fiesta_kn_model"):
+            main([path, "--svd-path", "", "--model", "Fiesta_kn_model",
+                  "--outdir", str(tmp_path), "--skip-sampling"], **kwargs)
     with pytest.raises(RuntimeError, match="dustmaps"):
         t_cli.main([path, "--outdir", str(tmp_path),
                     "--fetch-Ebv-from-dustmap", "--skip-sampling"],

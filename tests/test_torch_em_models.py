@@ -202,8 +202,6 @@ def test_salt2_mags_match(template):
 def test_spectral_model_from_file_refuses_what_needs_io(tmp_path):
     model = t_spec.spectral_model_from_file("sn_from_file", TEMPLATE)
     assert model.banded and model.parameter_names == ("supernova_mag_boost",)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        t_spec.spectral_model_from_file("possis", str(tmp_path / "x.h5"))
     ragged = tmp_path / "ragged.dat"
     ragged.write_text("0.5 1000 1.0\n0.5 2000 2.0\n1.5 1000 1.0\n")
     with pytest.raises(ValueError, match="not rectangular"):

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing all of ``nmma_tpu_torch`` and
-the port's scripts (scripts/torch_*.py) loads no JAX and nothing of the JAX
-package, and its entry points refuse to fall back to the CPU when no CUDA
-device is present and none was asked for."""
+the port's scripts (scripts/torch_*.py) loads no JAX, no flax and nothing of
+the JAX package, and its entry points refuse to fall back to the CPU when no
+CUDA device is present and none was asked for."""
 
 import os
 import subprocess
@@ -28,7 +28,9 @@ for path in scripts:
         "port_script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 top = {n.split(".")[0] for n in sys.modules}
-bad = sorted(t for t in top if t.startswith("jax") or t in ("flax", "nmma_tpu"))
+# flax and msgpack are absent on the card's machine, and h5py may be
+bad = sorted(t for t in top if t.startswith("jax")
+             or t in ("flax", "nmma_tpu", "msgpack", "h5py"))
 print("imported", len(names), "modules and", len(scripts),
       "scripts; forbidden:", bad)
 new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
@@ -48,7 +50,16 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.eos.tov", "nmma_tpu_torch.eos.generation",
        "nmma_tpu_torch.eos.cse", "nmma_tpu_torch.eos.likelihood",
        "nmma_tpu_torch.population", "nmma_tpu_torch.population.likelihood",
-       "nmma_tpu_torch.injections"}
+       "nmma_tpu_torch.injections",
+       "nmma_tpu_torch.io.fits", "nmma_tpu_torch.io.radiative",
+       "nmma_tpu_torch.io.msgpack", "nmma_tpu_torch.models.fiesta",
+       "nmma_tpu_torch.eos.baryonic",
+       "nmma_tpu_torch.post_processing.kde",
+       "nmma_tpu_torch.post_processing.hubble",
+       "nmma_tpu_torch.post_processing.ns_characteristics",
+       "nmma_tpu_torch.post_processing.marginalisation",
+       "nmma_tpu_torch.post_processing.resampling",
+       "nmma_tpu_torch.post_processing.maximum_mass"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
@@ -59,6 +70,10 @@ from nmma_tpu_torch.cli import joint_main, lightcurve_analysis
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
+from nmma_tpu_torch.models import fiesta
+from nmma_tpu_torch.post_processing import (GWEMResampler,
+                                            MaximumMassResampler,
+                                            marginalisation)
 
 ENTRY_POINTS = {
     "EMAnalysis": lambda: EMAnalysis(EMAnalysisConfig()),
@@ -81,6 +96,18 @@ ENTRY_POINTS = {
     "eos.cse_eos_family": lambda: eos.cse_eos_family(None),
     "eos.tabulate_weighted_eos": lambda: eos.tabulate_weighted_eos(
         None, None, "never-written"),
+    "fiesta.ingest_fiesta_directory": lambda: fiesta.ingest_fiesta_directory(
+        "never-read", "never-named"),
+    "fiesta.fiesta_from_numpy": lambda: fiesta.fiesta_from_numpy(dict(
+        name="x", kind="flux", parameter_names=("a",),
+        parameter_distributions={}, times=[1.0, 2.0], x_min=[0.0],
+        x_max=[1.0], kernels=([[1.0]],), biases=([0.0],), y_min=[0.0],
+        y_max=[1.0], nus=[1e14, 1e15])),
+    "post_processing.marginalisation.main": lambda: marginalisation.main(
+        ["--eos-data", "never-read"]),
+    "post_processing.GWEMResampler": lambda: GWEMResampler(None, None, None),
+    "post_processing.MaximumMassResampler": lambda: MaximumMassResampler(
+        None, None, None),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():

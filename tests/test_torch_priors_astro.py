@@ -184,11 +184,6 @@ def test_h5_multivariate_prior_matches(tmp_path):
     assert_transforms_match(j_dict, t_dict, seed=9)
 
 
-def test_inclination_prior_from_fits_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        t_astro.inclination_prior_from_fits("skymap.fits", dL=40.0)
-
-
 LOG_PROB_X = np.array([-1e3, -1.0, 0.0, 0.25, 0.5, 1.0, 5.0, 10.0, 20.0,
                        499.0, 500.0, 1e3, 1e4], dtype=np.float32)
 
