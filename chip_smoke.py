@@ -19,7 +19,9 @@ inference through nmma-generation / nmma-analysis (no kernel), and joint
 GW + EM + EOS inference (BASELINE config 5: the sparse Bu2019lm surrogate,
 P=2, H=128, through K1, and EOS tables the port's TOV solver makes); then
 fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
-(no kernel of their own; Bu2019lm through K1 where they use it):
+(no kernel of their own; Bu2019lm through K1 where they use it); then
+K1's general path, surrogate training, likelihood-free inference and the
+EOS emulators (K1 only):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -260,6 +262,49 @@ fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
               their baryonic tables (host odeint, 10 EOS x 19 masses), each
               a nested run capped at 40 iterations: seconds, finite logZ,
               no K1-K3 launch.
+
+ 38. k1_general
+              (phases 38-42 run last; no K2 or K3 launch in any, and their
+              K1 launches counted exactly) K1's general path against its
+              plain version at (P, C) = (1, 10), (3, 8), (6, 10), (7, 6),
+              (4, 6), (4, 40), B = 1, 128, 8199, F = 9, H = 2048, Q = 150
+              on seeded weights, within 1e-4 mag; ms at B = 8192 beside
+              the bound and the plain version's; (4, 10) and (2, 10) still
+              routed to the specialised instantiations, P = 17 refused.
+ 39. svd_train
+              1,024 Bu2019lm points (the production surrogate's plain K1
+              at seeded points in its bounds) written as bulla files;
+              create-svdmodel --axial-symmetry, C = 10, H = 2048, 4,000
+              epochs, 100 times (3,072 entries): seconds reading,
+              interpolating, decomposing and fitting, epochs/s, train and
+              holdout MSE, peak memory; the first 20 epochs card against
+              CPU from the same weights; svdmodel-benchmark (one K1
+              launch); K1 on the trained surrogate against its plain
+              version; the [cli] configuration on it, capped at 40
+              iterations (K1 launches 2 + iterations x walks); a second
+              training, C = 8 on 3 parameters (Bu2019nsbh's filenames,
+              KNphi at 45), whose surrogate takes K1's general path in one
+              batched_logl at B = 8192 against the plain K1.
+ 40. gp_train create-svdmodel --interpolation-type api_gp on the grid (one
+              1,024^2 Cholesky, 90 right-hand sides); the sklearn_gp
+              backend on its first 256 points for up to 400 steps; seconds,
+              peak memory, first and last NLL, the step it stopped at
+              (fault 3h), NaN count 0; magnitudes at 64 held-out points
+              card against CPU.
+ 41. lfi      lightcurve-analysis --sampler neuralnet on the [cli]
+              configuration (3,000 simulations, 400 epochs, 20,000 draws),
+              then with --lfi-vicreg-pretrain (60 epochs) and with
+              --lfi-pretrained-embedding on a seeded state dict under the
+              reference's key names: seconds of each stage, K1 launches
+              (the injection's light curve, one simulation batch), the
+              result's keys, the injected parameters inside and outside
+              the 90% intervals.
+ 42. tov_emulator
+              train_tov_emulator on the [eos] crust at its defaults (128
+              NEP EOS, hidden 64, 4,000 epochs): seconds for the targets
+              and the fit; M_TOV and R_1.4 at 32 held-out NEP points against
+              the port's TOV solver; the emulator step and a seeded LEC-13
+              set at B = 8192, ms and card against CPU.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -2556,8 +2601,8 @@ def k1_sparse(np, torch, gen):
     config 5's grid, against its plain version at B = 1, 128, 8199 and F =
     9 (every trained filter, what the joint path's model evaluates) and F =
     2 (ztfg, ztfr); one launch a call; its time at B = 8192 and 128 beside
-    its bound and the plain version's; a P that was not built refused
-    before any launch. Returns the fields of K1's kernel-line entry."""
+    its bound and the plain version's; P = 17 refused before any launch.
+    Returns the fields of K1's kernel-line entry."""
     from nmma_tpu_torch.models import SVDModelData
     from nmma_tpu_torch.ops import svd_kernel
 
@@ -2612,24 +2657,24 @@ def k1_sparse(np, torch, gen):
         fields.update({f"{tag}_ms": ms, f"{tag}_ms_sampler_batch": ms_small,
                        f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
                        f"{tag}_bound_by": bound_by})
-    # a P the kernel was not built for: refused before any launch
+    # a P outside the kernels' range: refused before any launch
     before = svd_kernel.LAUNCHES
-    w1_3 = torch.zeros((2, 3, h), device=DEVICE)
+    w1_17 = torch.zeros((2, 17, h), device=DEVICE)
     try:
         svd_kernel.svd_surrogate_mags(
-            torch.zeros((4, 3), device=DEVICE), w1_3, *two[1:])
+            torch.zeros((4, 17), device=DEVICE), w1_17, *two[1:])
     except ValueError as err:
         refused = str(err)
     else:
-        raise RuntimeError("K1 took P=3, which it was not built for")
+        raise RuntimeError("K1 took P=17")
     if svd_kernel.LAUNCHES != before:
-        raise RuntimeError("K1 launched for a P it was not built for")
+        raise RuntimeError("K1 launched for P=17")
     from nmma_tpu_torch import _kernels
     for entry, summary in ptxas_entries(
             _kernels.REPORTS.get("svd_mlp", "")).items():
         say("ptxas", library="svd_mlp", entry=entry, **summary)
-    say("k1_sparse", refused_p3=repr(refused), max_abs_err=f"{max_err:.3e}",
-        built_p=",".join(map(str, svd_kernel.KERNEL_PS)))
+    say("k1_sparse", refused_p17=repr(refused), max_abs_err=f"{max_err:.3e}",
+        specialised=",".join(f"P{p}C{c}" for p, c in svd_kernel.SPECIALISED))
     fields["sparse_max_abs_err"] = max_err
     return fields
 
@@ -3670,6 +3715,656 @@ def post_path(np, torch, tmp):
     say("post_phases", seconds=f"{time.time() - t0:.2f}")
 
 
+# --- item 18: K1's general path, surrogate training, LFI, EOS emulators ---
+
+# (P, C) of the general path's check; (4, 10) and (2, 10) must still take
+# the specialised instantiations
+K1_GENERAL_SHAPES = ((1, 10), (3, 8), (6, 10), (7, 6), (4, 6), (4, 40))
+TRAIN_POINTS = 1024
+TRAIN_FLAGS = ["--svd-ncoeff", "10", "--hidden", "2048", "--n-epochs", "4000",
+               "--n-tsteps", "100"]
+TRAIN_CHECK_EPOCHS = 20
+# card against CPU after 20 epochs from the same weights: the losses (same
+# data, same adam, f32 sums in another order) and the net's coefficients
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_COEFF_ATOL = 1e-3
+TRAIN_CLI_CAP = 40
+# the second training: Bu2019nsbh's filename convention (3 parameters,
+# KNphi dropped: its grid is the production surrogate at KNphi = 45)
+NSBH_POINTS = 512
+NSBH_FLAGS = ["--svd-ncoeff", "8", "--hidden", "2048", "--n-epochs", "1000",
+              "--n-tsteps", "100"]
+NSBH_PRIOR_TEXT = """\
+log10_mej_dyn = Uniform(minimum=-3., maximum=-1.7)
+log10_mej_wind = Uniform(minimum=-2., maximum=-0.9)
+KNtheta = Uniform(minimum=0., maximum=90.)
+luminosity_distance = Uniform(minimum=10., maximum=100.)
+timeshift = Uniform(minimum=-0.2, maximum=0.2)
+"""
+NSBH_INJECTION = {"log10_mej_dyn": -2.0, "log10_mej_wind": -1.2,
+                  "KNtheta": 30.0, "luminosity_distance": 40.0,
+                  "timeshift": 0.0}
+GP_SUBSET = 256
+GP_STEPS = 400
+GP_HELD_OUT = 64
+GP_MAG_TOL = 5e-2      # mag, card against CPU, same surrogate file
+LFI_VICREG_EPOCHS = 60
+LFI_SIMULATIONS = 3000
+TOV_HELD_OUT = 32
+TOV_MTOV_TOL = 0.05    # Msun, emulator against the port's TOV solver
+TOV_R14_TOL = 0.3      # km
+# the emulator steps, card against CPU: f32 sums in another order passed
+# through exp and 10^x; the port's relative gate (K3's)
+EMULATOR_RTOL = 1e-4
+
+
+def assert_launches(phase, k1):
+    """Raise unless K1 launched exactly ``k1`` times, and K2 and K3 never,
+    since the last reset_launches()."""
+    got = kernel_launches()
+    if got != (k1, 0, 0):
+        raise RuntimeError(f"[{phase}] launched K1, K2, K3 {got} times; "
+                           f"expected ({k1}, 0, 0)")
+
+
+def seeded_k1_operands(torch, gen, p, c, b, n_f=9, h=2048, q=150):
+    """K1's operands at production widths with seeded weights of a trained
+    surrogate's scales: x [B, P] in [0, 1], He-normal W1, 1/sqrt(H) W2, a
+    basis of O(1) magnitudes around -15."""
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE)
+    x = torch.rand((b, p), generator=gen, device=DEVICE)
+    return (x, randn(n_f, p, h, scale=math.sqrt(2.0 / p)),
+            randn(n_f, h, scale=0.1), randn(n_f, h, c, scale=h ** -0.5),
+            randn(n_f, c, scale=0.1), randn(n_f, c, q, scale=2.0 / math.sqrt(c)),
+            -15.0 + randn(n_f, q))
+
+
+def k1_general(np, torch, gen):
+    """[k1_general]: K1's general path against its plain version at the
+    (P, C) of K1_GENERAL_SHAPES, B = 1, 128, 8199, production widths (F=9,
+    H=2048, Q=150); one launch a call; its time at B = 8192 beside its
+    bound and the plain version's. (4, 10) and (2, 10) still route to the
+    specialised instantiations; P = 17 is refused before any launch.
+    Returns the fields of K1's kernel-line entry."""
+    from nmma_tpu_torch.ops import svd_kernel
+
+    fields, max_err = {}, 0.0
+    for p, c in ((4, 10), (2, 10)):
+        if svd_kernel.kernel_route(p, c) != "specialised":
+            raise RuntimeError(f"K1 ({p}, {c}) left its instantiation")
+    for p, c in K1_GENERAL_SHAPES:
+        if svd_kernel.kernel_route(p, c) != "general":
+            raise RuntimeError(f"K1 ({p}, {c}) is not on the general path")
+        shape_err = 0.0
+        for b in (1, SAMPLER_BATCH, BATCH + 7):
+            ops = seeded_k1_operands(torch, gen, p, c, b)
+            reset_launches()
+            got = svd_kernel.svd_surrogate_mags(*ops)
+            assert_launches("k1_general", 1)
+            want = svd_kernel.svd_surrogate_mags_plain(*ops)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if got.shape != want.shape or not math.isfinite(err) \
+                    or err > K1_TOL:
+                raise RuntimeError(f"K1 general (P={p}, C={c}) at B={b}: "
+                                   f"max abs err {err} (tolerance {K1_TOL})")
+            shape_err = max(shape_err, err)
+        max_err = max(max_err, shape_err)
+        ops = seeded_k1_operands(torch, gen, p, c, BATCH)
+        ms = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags(*ops),
+                     rounds=10)
+        plain = time_ms(torch, lambda: svd_kernel.svd_surrogate_mags_plain(
+            *ops), rounds=10)
+        flops, n_bytes, bound, bound_by = k1_bound(BATCH, 9, p, 2048, c, 150)
+        say("k1_general", p=p, c=c, batch=BATCH, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, bound_share=f"{bound / ms:.4f}",
+            max_abs_err_b1_b128_b8199=f"{shape_err:.3e}")
+        fields[f"general_p{p}_c{c}_ms"] = ms
+        fields[f"general_p{p}_c{c}_plain_ms"] = plain
+        fields[f"general_p{p}_c{c}_bound_ms"] = bound
+    ops = seeded_k1_operands(torch, gen, 17, 10, 4)
+    reset_launches()
+    try:
+        svd_kernel.svd_surrogate_mags(*ops)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise RuntimeError("K1 took P=17")
+    assert_launches("k1_general", 0)
+    say("k1_general", shapes=len(K1_GENERAL_SHAPES), batches="1,128,8199",
+        max_abs_err=f"{max_err:.3e}", refused_p17=repr(refused))
+    fields["general_max_abs_err"] = max_err
+    return fields
+
+
+def surrogate_grid(np, torch, svd, n, seed, fixed=None):
+    """(params {name: [n]}, mags [n, F, T]) of the surrogate ``svd`` on its
+    own time grid at n points drawn with ``seed`` inside its bounds (a
+    name in ``fixed`` held at its value), through its plain K1 version."""
+    from nmma_tpu_torch.ops import svd_kernel
+
+    rng = np.random.default_rng(seed)
+    names = list(svd.parameter_names)
+    theta = rng.uniform(svd.host["param_mins"], svd.host["param_maxs"],
+                        (n, len(names)))
+    for name, value in (fixed or {}).items():
+        theta[:, names.index(name)] = value
+    params = {k: torch.tensor(theta[:, i], dtype=torch.float32,
+                              device=DEVICE) for i, k in enumerate(names)}
+    kernel_fn = svd_kernel.svd_surrogate_mags
+    svd_kernel.svd_surrogate_mags = svd_kernel.svd_surrogate_mags_plain
+    try:
+        with torch.no_grad():
+            mags = svd(params, torch.tensor(svd.tt, dtype=torch.float32,
+                                            device=DEVICE))
+    finally:
+        svd_kernel.svd_surrogate_mags = kernel_fn
+    return ({k: theta[:, i] for i, k in enumerate(names)},
+            mags.cpu().numpy())
+
+
+def train_on_card_and_cpu(np, torch, entries, pnames, filters):
+    """The first TRAIN_CHECK_EPOCHS epochs of the [svd_train] fit from the
+    same initial weights on the card and on the CPU: (max relative loss
+    difference, max |coefficient difference| on the holdout)."""
+    from nmma_tpu_torch.training import svd as t_svd
+
+    cfg = t_svd.SVDTrainingConfig(n_coeff=10, hidden=2048, n_tsteps=100)
+    tt = np.linspace(cfg.tmin, cfg.tmax, cfg.n_tsteps)
+    data = t_svd._interp_grid(entries, filters, tt)
+    params = np.asarray([[e["params"][p] for p in pnames] for e in entries])
+    _, _, x, _, _, va, coeffs = t_svd._normalize_and_decompose(
+        data, params, cfg.n_coeff)
+    perm = np.random.default_rng(cfg.seed).permutation(len(entries))
+    n_hold = max(1, int(round(len(entries) * cfg.holdout_fraction)))
+    train, hold = perm[n_hold:], perm[:n_hold]
+    out = {}
+    for device in (DEVICE, "cpu"):
+        net = t_svd.initial_mlp(len(filters), params.shape[1], cfg.hidden,
+                                va.shape[2], cfg.seed, device)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                   device=device)
+        losses = []
+        for _ in range(TRAIN_CHECK_EPOCHS):
+            net, loss = t_svd.fit_mlp(net, dev(x[train]), dev(coeffs[train]),
+                                      1, cfg.learning_rate, verbose=False)
+            losses.append(loss)
+        with torch.no_grad():
+            pred = t_svd.stacked_mlp(dev(x[hold]), net).cpu().numpy()
+        out[device] = (np.asarray(losses), pred)
+    (l_card, p_card), (l_cpu, p_cpu) = out[DEVICE], out["cpu"]
+    return (float(np.abs(l_card / l_cpu - 1).max()),
+            float(np.abs(p_card - p_cpu).max()), l_card)
+
+
+def trained_cli(np, torch, svd_path, tmp):
+    """The [cli] configuration on the trained surrogate: a nested run
+    capped at TRAIN_CLI_CAP iterations; returns (iterations, K1 launches,
+    logZ, seconds)."""
+    import dataclasses
+
+    from nmma_tpu_torch.cli import lightcurve_analysis
+
+    config, config_path = cli_config(tmp)
+    real = lightcurve_analysis.sampler_config_from_args
+
+    def capped(args):
+        return dataclasses.replace(real(args), max_iter=TRAIN_CLI_CAP)
+    lightcurve_analysis.sampler_config_from_args = capped
+    t0 = time.time()
+    reset_launches()
+    try:
+        analysis = lightcurve_analysis.main(
+            [config_path, "--svd-path", svd_path, "--model",
+             "Bu2019lm_trained", "--label", "trained"])
+    finally:
+        lightcurve_analysis.sampler_config_from_args = real
+    torch.cuda.synchronize()
+    result = analysis.result
+    expected = 2 + result.niter * analysis.config.sampler.walks
+    assert_launches("svd_train", expected)
+    if not math.isfinite(result.logz) or result.niter > TRAIN_CLI_CAP:
+        raise RuntimeError(f"the trained surrogate's run: logZ "
+                           f"{result.logz} in {result.niter} iterations")
+    return result.niter, expected, result.logz, time.time() - t0
+
+
+def nsbh_logl(np, torch, gen, svd_path, tmp):
+    """The P=3, C=8 surrogate in one EMAnalysis.batched_logl at B = BATCH
+    (K1's general path, one launch), against the plain K1; returns (finite
+    share, max |dlogL|)."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+    from nmma_tpu_torch.ops import svd_kernel
+
+    svd = SVDModelData.load(svd_path, device=DEVICE)
+    model = make_svd_source_model("Bu2019nsbh_trained", svd).name
+    data_path = os.path.join(tmp, "nsbh.dat")
+    prior_path = os.path.join(tmp, "nsbh.prior")
+    with open(prior_path, "w") as f:
+        f.write(NSBH_PRIOR_TEXT)
+    synthetic_photometry(np, torch, model, list(svd.filters), data_path,
+                         NSBH_INJECTION, sample_times=(0.2, 14.0, 100),
+                         epochs=(0.5, 12.0))
+    analysis = EMAnalysis(EMAnalysisConfig(
+        model=model, prior_file=prior_path, light_curve_data=data_path,
+        trigger_time=TRIGGER_MJD, data_tmax=12.5, error_budget=1.0,
+        filters=list(svd.filters), tmin=0.2, tmax=14.0), device=DEVICE)
+    u = analysis.priors.sample_units(gen, BATCH)
+    reset_launches()
+    logl = analysis.batched_logl(u)
+    torch.cuda.synchronize()
+    assert_launches("svd_train", 1)
+    kernel_fn = svd_kernel.svd_surrogate_mags
+    svd_kernel.svd_surrogate_mags = svd_kernel.svd_surrogate_mags_plain
+    try:
+        plain = analysis.batched_logl(u)
+    finally:
+        svd_kernel.svd_surrogate_mags = kernel_fn
+    usable = logl > -1e29
+    if not torch.equal(usable, plain > -1e29) or float(
+            usable.float().mean()) < 0.5:
+        raise RuntimeError("the P=3 surrogate's logL lost its sentinels "
+                           "or most of its batch")
+    dlogl = (logl - plain)[usable].abs()
+    if bool((dlogl > LOGL_ATOL + LOGL_RTOL * plain[usable].abs()).any()):
+        raise RuntimeError(f"P=3 logL off the plain K1 by "
+                           f"{float(dlogl.max())}")
+    return float(usable.float().mean()), float(dlogl.max())
+
+
+def svd_train(np, torch, gen, tmp):
+    """[svd_train]: a 1,024-point Bu2019lm grid (the production surrogate
+    through its plain K1 version, seeded points inside its bounds) written
+    as bulla files, then create-svdmodel --axial-symmetry at production
+    width on the card (3,072 entries, 4,000 epochs), the first 20 epochs
+    card against CPU, svdmodel-benchmark, the trained surrogate through
+    the [cli] configuration (K1 against its plain version, a nested run of
+    40 iterations), and a second training at --svd-ncoeff 8 on 3
+    parameters (Bu2019nsbh's filenames, KNphi at 45) whose surrogate runs
+    through K1's general path in one batched_logl. Returns the grid
+    directory and the fields of K1's kernel-line entry."""
+    from nmma_tpu_torch.cli import tools
+    from nmma_tpu_torch.models import SVDModelData
+    from nmma_tpu_torch.ops import svd_kernel
+    from nmma_tpu_torch.training import read_bulla_grid
+    from nmma_tpu_torch.training.svd import axial_symmetry, write_bulla_grid
+
+    t_start = time.time()
+    prod = SVDModelData.load(ARTIFACT, device=DEVICE)
+    grid_dir = os.path.join(tmp, "grid")
+    params, mags = surrogate_grid(np, torch, prod, TRAIN_POINTS, seed=18)
+    write_bulla_grid(grid_dir, "Bu2019lm", params, prod.tt, mags,
+                     list(prod.filters))
+    svd_dir = os.path.join(tmp, "svdmodels")
+    info = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    out = tools.create_svdmodel(
+        ["--model", "Bu2019lm", "--data-path", grid_dir, "--svd-path",
+         svd_dir, "--axial-symmetry", *TRAIN_FLAGS], info=info)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    assert_launches("svd_train", 0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if info["n_entries"] != 3 * TRAIN_POINTS or info["epochs"] != 4000 \
+            or not info["holdout_mse"] < 0.05:
+        raise RuntimeError(f"create-svdmodel: {info}")
+    say("svd_train", grid_points=TRAIN_POINTS, entries=info["n_entries"],
+        read_s=f"{info['read_s']:.3f}", interp_s=f"{info['interp_s']:.3f}",
+        svd_s=f"{info['svd_s']:.3f}", fit_s=f"{info['fit_s']:.3f}",
+        epochs=info["epochs"],
+        epochs_per_s=f"{info['epochs'] / info['fit_s']:.1f}",
+        train_mse=f"{info['train_mse']:.3e}",
+        holdout_mse=f"{info['holdout_mse']:.3e}",
+        n_holdout=info["n_holdout"], peak_gib=f"{peak_gib:.3f}",
+        create_svdmodel_s=f"{train_s:.2f}")
+
+    entries, pnames, filters = read_bulla_grid(
+        sorted(os.path.join(grid_dir, f) for f in os.listdir(grid_dir)),
+        model="Bu2019lm")
+    loss_rel, coeff_err, losses = train_on_card_and_cpu(
+        np, torch, axial_symmetry(entries), pnames, filters)
+    if loss_rel > TRAIN_LOSS_RTOL or coeff_err > TRAIN_COEFF_ATOL:
+        raise RuntimeError(f"20 epochs card against CPU: losses {loss_rel} "
+                           f"relative, coefficients {coeff_err}")
+    say("svd_train", card_vs_cpu_epochs=TRAIN_CHECK_EPOCHS,
+        max_rel_loss=f"{loss_rel:.3e}", max_abs_coeff=f"{coeff_err:.3e}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        tolerance=f"{TRAIN_LOSS_RTOL}/{TRAIN_COEFF_ATOL}")
+
+    reset_launches()
+    t0 = time.time()
+    scores = tools.svdmodel_benchmark(
+        ["--model", "Bu2019lm", "--data-path", grid_dir, "--svd-path",
+         svd_dir, "--outdir", os.path.join(tmp, "bench")])
+    assert_launches("svd_train", 1)
+    medians = [v[2] for v in scores.values()]
+    if sorted(scores) != sorted(prod.filters) or not max(medians) < 1.0:
+        raise RuntimeError(f"svdmodel-benchmark: {scores}")
+    say("svd_train", benchmark_s=f"{time.time() - t0:.3f}", k1_launches=1,
+        chi2_median_max=f"{max(medians):.4e}",
+        chi2_median_ztfg=f"{scores['ztfg'][2]:.4e}")
+
+    trained = SVDModelData.load(out, device=DEVICE)
+    t_days = torch.tensor(np.geomspace(0.25, 12.0, 100), dtype=torch.float32,
+                          device=DEVICE)
+    va_q, off_q, _ = trained.operator_rankc(t_days)
+    weights = (trained.w1, trained.b1, trained.w2, trained.b2, va_q, off_q)
+    max_err = 0.0
+    for b in (1, SAMPLER_BATCH, BATCH + 7):
+        x = torch.rand((b, 4), generator=gen, device=DEVICE)
+        err = float((svd_kernel.svd_surrogate_mags(x, *weights)
+                     - svd_kernel.svd_surrogate_mags_plain(x, *weights))
+                    .abs().max())
+        if not err <= K1_TOL:
+            raise RuntimeError(f"K1 on the trained surrogate at B={b}: {err}")
+        max_err = max(max_err, err)
+    iterations, launches, logz, cli_s = trained_cli(np, torch, out, tmp)
+    say("svd_train", trained_k1_max_abs_err=f"{max_err:.3e}",
+        cli_iterations=iterations, cli_k1_launches=launches,
+        cli_logz=f"{logz:.4f}", cli_s=f"{cli_s:.2f}")
+
+    nsbh_dir = os.path.join(tmp, "grid_nsbh")
+    params, mags = surrogate_grid(np, torch, prod, NSBH_POINTS, seed=19,
+                                  fixed={"KNphi": 45.0})
+    del params["KNphi"]
+    write_bulla_grid(nsbh_dir, "Bu2019nsbh", params, prod.tt, mags,
+                     list(prod.filters))
+    info = {}
+    reset_launches()
+    out = tools.create_svdmodel(
+        ["--model", "Bu2019nsbh", "--data-path", nsbh_dir, "--svd-path",
+         svd_dir, *NSBH_FLAGS], info=info)
+    assert_launches("svd_train", 0)
+    nsbh = SVDModelData.load(out, device=DEVICE)
+    if nsbh.w1.shape[1] != 3 or nsbh.n_coeff != 8:
+        raise RuntimeError(f"the nsbh surrogate is {tuple(nsbh.w1.shape)}")
+    share, dlogl = nsbh_logl(np, torch, gen, out, tmp)
+    say("svd_train", nsbh_points=NSBH_POINTS, nsbh_p=3, nsbh_c=8,
+        nsbh_fit_s=f"{info['fit_s']:.3f}",
+        nsbh_holdout_mse=f"{info['holdout_mse']:.3e}",
+        nsbh_logl_batch=BATCH, nsbh_k1_launches=1,
+        nsbh_finite_share=f"{share:.4f}",
+        nsbh_max_abs_dlogl_vs_plain=f"{dlogl:.3e}",
+        seconds=f"{time.time() - t_start:.2f}")
+    return grid_dir, {"trained_max_abs_err": max_err,
+                      "launches_trained_cli": launches}
+
+
+def gp_train(np, torch, gen, grid_dir, tmp):
+    """[gp_train]: --interpolation-type api_gp on the 1,024-point grid
+    (one 1,024^2 Cholesky with 90 right-hand sides), then the sklearn_gp
+    backend on its first 256 points for up to 400 adam steps (a [90, 256,
+    256] Cholesky and its backward a step; the fit stops at the first NaN
+    NLL, fault 3h, and the step is printed); each surrogate's magnitudes at
+    64 held-out points, card against CPU."""
+    from nmma_tpu_torch.cli import tools
+    from nmma_tpu_torch.training import (load_gp_surrogate, read_bulla_grid,
+                                         svd_gp_surrogate_mags,
+                                         train_svd_gp_model)
+    from nmma_tpu_torch.training.svd import SVDTrainingConfig
+
+    files = sorted(os.path.join(grid_dir, f) for f in os.listdir(grid_dir))
+    svd_dir = os.path.join(tmp, "gp")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    out = tools.create_svdmodel(
+        ["--model", "Bu2019lm", "--data-path", grid_dir, "--svd-path",
+         svd_dir, "--interpolation-type", "api_gp", "--svd-ncoeff", "10",
+         "--n-tsteps", "100"])
+    torch.cuda.synchronize()
+    api_s = time.time() - t0
+    api_peak = torch.cuda.max_memory_allocated() / 2**30
+    meta, api = load_gp_surrogate(out, device=DEVICE)
+    api_nan = int(torch.isnan(api.alpha_vecs).sum())
+
+    entries, pnames, filters = read_bulla_grid(files[:GP_SUBSET],
+                                               model="Bu2019lm")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    skl_meta, skl = train_svd_gp_model(
+        entries, pnames, filters, SVDTrainingConfig(n_coeff=10,
+                                                    n_tsteps=100),
+        n_steps=GP_STEPS, verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    skl_s = time.time() - t0
+    skl_peak = torch.cuda.max_memory_allocated() / 2**30
+    assert_launches("gp_train", 0)
+    nll = skl.nll_history
+    skl_nan = int(np.isnan(nll).sum()) + int(torch.isnan(skl.alpha_vecs).sum())
+    if api_nan or skl_nan or not nll[-1] < nll[0]:
+        raise RuntimeError(f"GP fits: {api_nan} NaN alphas (api_gp), "
+                           f"{skl_nan} NaN (sklearn_gp), NLL {nll[0]} -> "
+                           f"{nll[-1]}")
+
+    rng = np.random.default_rng(20)
+    lo, hi = meta["param_mins"], meta["param_maxs"]
+    theta = rng.uniform(lo, hi, (GP_HELD_OUT, len(lo)))
+    t_out = np.geomspace(0.25, 12.0, 50)
+    errs = {}
+    for name, (m, gp) in (("api_gp", (meta, api)),
+                          ("sklearn_gp", (skl_meta, skl))):
+        path = os.path.join(tmp, f"{name}.npz")
+        from nmma_tpu_torch.training import save_gp_surrogate
+        save_gp_surrogate(path, m, gp)
+        cpu_meta, cpu_gp = load_gp_surrogate(path, device="cpu")
+        got = svd_gp_surrogate_mags(m, gp, {k: torch.tensor(
+            theta[:, i], dtype=torch.float32, device=DEVICE)
+            for i, k in enumerate(pnames)}, t_out).cpu().numpy()
+        want = svd_gp_surrogate_mags(cpu_meta, cpu_gp, {k: torch.tensor(
+            theta[:, i], dtype=torch.float32) for i, k in enumerate(pnames)},
+            t_out).numpy()
+        if not np.isfinite(want).all() or not np.isfinite(got).all():
+            raise RuntimeError(f"{name}: non-finite magnitudes")
+        errs[name] = float(np.abs(got - want).max())
+        if errs[name] > GP_MAG_TOL:
+            raise RuntimeError(f"{name} card against CPU: {errs[name]} mag")
+    say("gp_train", api_gp_points=len(files), api_gp_rhs=90,
+        api_gp_s=f"{api_s:.3f}", api_gp_peak_gib=f"{api_peak:.3f}",
+        api_gp_nan=api_nan,
+        api_gp_alpha_absmax=f"{float(api.alpha_vecs.abs().max()):.3e}",
+        sklearn_gp_points=GP_SUBSET, sklearn_gp_steps=GP_STEPS,
+        sklearn_gp_s=f"{skl_s:.3f}", sklearn_gp_peak_gib=f"{skl_peak:.3f}",
+        nll_first=f"{nll[0]:.4f}", nll_last=f"{nll[-1]:.4f}",
+        sklearn_gp_steps_run=len(nll),
+        sklearn_gp_stopped_at=skl.stopped_at,
+        sklearn_gp_nan=skl_nan, held_out=GP_HELD_OUT,
+        api_gp_card_vs_cpu_mag=f"{errs['api_gp']:.3e}",
+        sklearn_gp_card_vs_cpu_mag=f"{errs['sklearn_gp']:.3e}",
+        tolerance_mag=GP_MAG_TOL)
+
+
+def lfi_phase(np, torch, tmp):
+    """[lfi]: lightcurve-analysis --sampler neuralnet on the [cli]
+    configuration at the JAX package's defaults (3,000 simulations through
+    K1, 400 epochs, 20,000 draws), then with --lfi-vicreg-pretrain (60
+    epochs), then with --lfi-pretrained-embedding on a seeded state dict
+    saved under the reference's key names. Returns the runs' K1
+    launches."""
+    from nmma_tpu_torch.cli import lightcurve_analysis
+    from nmma_tpu_torch.mlmodel.inference import SIM_BATCH
+    from nmma_tpu_torch.mlmodel.pretrained import seeded_state_dict
+
+    config, config_path = cli_config(tmp)
+    weights = os.path.join(tmp, "similarity_embedding_weights.pth")
+    torch.save(seeded_state_dict(18), weights)
+    truth = {**INJECTION, **CLI_INJECTION}
+    runs = (("flow", []),
+            ("vicreg", ["--lfi-vicreg-pretrain", "--lfi-vicreg-epochs",
+                        str(LFI_VICREG_EPOCHS)]),
+            ("pretrained", ["--lfi-pretrained-embedding",
+                            "--lfi-embedding-weights", weights]))
+    launches = {}
+    for name, flags in runs:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        analysis = lightcurve_analysis.main(
+            [config_path, "--sampler", "neuralnet", "--label",
+             f"lfi_{name}", *flags])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        # the injection's light curve, then the simulations in batches of
+        # at most SIM_BATCH
+        expected = 1 + -(-LFI_SIMULATIONS // SIM_BATCH)
+        assert_launches("lfi", expected)
+        launches[name] = expected
+        result = np.load(os.path.join(config["outdir"],
+                                      f"lfi_{name}_result.npz"))
+        keys = sorted(result.files)
+        want = sorted(["sampler"] + [f"posterior_{k}" for k in
+                                     analysis.priors.sampled_names])
+        post = analysis.neuralnet_posterior
+        if keys != want or any(v.shape != (20000,) or
+                               not np.isfinite(v).all()
+                               for v in post.values()):
+            raise RuntimeError(f"[lfi] {name}: result keys {keys}")
+        inside = {k: bool(np.quantile(v, 0.05) <= truth[k]
+                          <= np.quantile(v, 0.95))
+                  for k, v in post.items() if k in truth}
+        timing = analysis.lfi_timings
+        say("lfi", run=name, seconds=f"{seconds:.2f}",
+            simulate_s=f"{timing['simulate_s']:.3f}",
+            train_s=f"{timing['train_s']:.3f}",
+            sample_s=f"{timing['sample_s']:.3f}",
+            **({"vicreg_s": f"{timing['vicreg_s']:.3f}"}
+               if "vicreg_s" in timing else {}),
+            k1_launches=expected, simulations=LFI_SIMULATIONS,
+            draws=len(next(iter(post.values()))),
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            keys=",".join(keys),
+            inside_90=",".join(k for k, v in inside.items() if v),
+            outside_90=",".join(k for k, v in inside.items() if not v)
+            or "none")
+    return launches
+
+
+def tov_emulator_phase(np, torch, gen):
+    """[tov_emulator]: train_tov_emulator on the [eos] crust at its
+    defaults (128 NEP EOS, hidden 64, 4,000 epochs) on the card; M_TOV and
+    R_1.4 at 32 held-out NEP points against the port's TOV solver; the
+    emulator step and a seeded LEC-13 set at B = BATCH, card against CPU."""
+    from nmma_tpu_torch.eos import emulator, lec
+
+    timings = {}
+    t0 = time.time()
+    reset_launches()
+    emu = emulator.train_tov_emulator(crust_table(np), device=DEVICE,
+                                      timings=timings)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    rng = np.random.default_rng(21)
+    held = rng.uniform([28.0, 30.0], [36.0, 90.0], (TOV_HELD_OUT, 2))
+    keep, truth = emulator.emulator_targets(held, ["S0", "L"],
+                                            crust_table(np), device=DEVICE)
+    got = emu({"S0": torch.tensor(held[keep, 0], dtype=torch.float32,
+                                  device=DEVICE),
+               "L": torch.tensor(held[keep, 1], dtype=torch.float32,
+                                 device=DEVICE)})
+    d_mtov = np.abs(got["TOV_mass"].cpu().numpy() - truth[:, 0])
+    r14 = np.array([np.interp(1.4 / row[0], emulator.X_GRID,
+                              row[1:1 + len(emulator.X_GRID)])
+                    for row in truth])
+    d_r14 = np.abs(got["R_14"].cpu().numpy() - r14)
+    if d_mtov.max() > TOV_MTOV_TOL or d_r14.max() > TOV_R14_TOL:
+        raise RuntimeError(f"the emulator off its solver: M_TOV "
+                           f"{d_mtov.max()}, R_1.4 {d_r14.max()}")
+
+    path_emu = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_emu_"),
+                            "emu.npz")
+    emu.save(path_emu)
+    emu_cpu = emulator.TOVEmulator.load(path_emu, device="cpu")
+    u = torch.rand((4, BATCH), generator=gen, device=DEVICE)
+    params = {"S0": 28.0 + 8.0 * u[0], "L": 30.0 + 60.0 * u[1],
+              "mass_1_source": 1.0 + 1.5 * u[2],
+              "mass_2_source": 1.0 + 0.6 * u[3]}
+    step_ms = time_ms(torch, lambda: emu(params))
+
+    def worst(card, cpu_fn, ps):
+        out = card(ps)
+        ref = cpu_fn({k: v.cpu() for k, v in ps.items()})
+        errs = []
+        for k in out:
+            a, b = out[k].cpu(), ref[k]
+            same = torch.isnan(a) == torch.isnan(b)
+            if not bool(same.all()):
+                raise RuntimeError(f"NaN placement differs in {k}")
+            ok = ~torch.isnan(b)
+            errs.append(float(((a - b).abs()[ok] / b.abs()[ok].clamp(
+                min=1e-6)).max()) if bool(ok.any()) else 0.0)
+        return max(errs)
+    emu_err = worst(emu, emu_cpu, params)
+    t0 = time.perf_counter()
+    emu_cpu({k: v.cpu() for k, v in params.items()})
+    emu_cpu_ms = 1e3 * (time.perf_counter() - t0)
+
+    lec_rng = np.random.default_rng(22)
+    n_p, n_m = len(lec.LEC13_PARAMETERS), 30
+
+    def layers(out, scale):
+        return ((lec_rng.normal(0, 0.3, (n_p, 64)),
+                 lec_rng.normal(0, 0.1, 64)),
+                (lec_rng.normal(0, scale, (64, out)),
+                 lec_rng.normal(0, 0.1, out)))
+    fields = dict(parameter_names=lec.LEC13_PARAMETERS,
+                  feat_loc=np.zeros(n_p), feat_scale=np.ones(n_p),
+                  mass_layers=((lec_rng.normal(0, 0.3, (n_p, 64)),
+                                lec_rng.normal(0, 0.1, 64)),
+                               (lec_rng.normal(0, 0.02, (64, 1)),
+                                np.array([2.1]))),
+                  radius_layers=layers(n_m, 0.2),
+                  lambda_layers=layers(n_m, 0.2),
+                  radius_loc=np.full(n_m, 12.0),
+                  radius_scale=np.full(n_m, 0.5),
+                  lambda_loc=np.linspace(3.5, 0.5, n_m),
+                  lambda_scale=np.full(n_m, 0.2))
+    lec_card = lec.LECEmulatorSet.from_numpy(device=DEVICE, **fields)
+    lec_cpu = lec.LECEmulatorSet.from_numpy(device="cpu", **fields)
+    lp = {k: torch.randn(BATCH, generator=gen, device=DEVICE)
+          for k in lec.LEC13_PARAMETERS}
+    lp["mass_1_source"] = params["mass_1_source"]
+    lp["mass_2_source"] = params["mass_2_source"]
+    lec_err = worst(lec_card, lec_cpu, lp)
+    lec_ms = time_ms(torch, lambda: lec_card(lp))
+    assert_launches("tov_emulator", 0)
+    if emu_err > EMULATOR_RTOL or lec_err > EMULATOR_RTOL:
+        raise RuntimeError(f"emulator steps card against CPU: {emu_err}, "
+                           f"LEC {lec_err}")
+    say("tov_emulator", eos=timings["n_eos"], hidden=64,
+        epochs=timings["epochs"], targets_s=f"{timings['targets_s']:.3f}",
+        fit_s=f"{timings['fit_s']:.3f}", train_s=f"{train_s:.3f}",
+        mse=f"{timings['mse']:.3e}", held_out=len(keep),
+        max_dmtov=f"{d_mtov.max():.4f}", max_dr14_km=f"{d_r14.max():.4f}",
+        step_batch=BATCH, step_ms=f"{step_ms:.4f}",
+        step_cpu_ms=f"{emu_cpu_ms:.3f}", step_max_rel=f"{emu_err:.3e}",
+        lec13_ms=f"{lec_ms:.4f}", lec13_max_rel=f"{lec_err:.3e}")
+
+
+def training_path(np, torch):
+    """The item-18 phases: [k1_general], [svd_train], [gp_train], [lfi],
+    [tov_emulator]. Returns the fields they add to K1's kernel-line
+    entry."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(18)
+    t0 = time.time()
+    fields = k1_general(np, torch, gen)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        grid_dir, train_fields = svd_train(np, torch, gen, tmp)
+        fields.update(train_fields)
+        gp_train(np, torch, gen, grid_dir, tmp)
+        fields["launches_lfi"] = lfi_phase(np, torch, tmp)
+    tov_emulator_phase(np, torch, gen)
+    say("training_phases", seconds=f"{time.time() - t0:.2f}")
+    return fields
+
+
 def main() -> int:
     import torch
 
@@ -3867,6 +4562,7 @@ def main() -> int:
         k1_joint = joint_path(np, torch, tmp)
         gw_path(np, torch)
         post_path(np, torch, tmp)
+    k1_training = training_path(np, torch)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
@@ -3875,7 +4571,7 @@ def main() -> int:
         "launches_cli": cli_launches, "max_abs_err": max_err,
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "ms_sampler_batch": k1_ms_small, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        **k1_joint,
+        **k1_joint, **k1_training,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

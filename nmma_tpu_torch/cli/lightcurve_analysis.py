@@ -101,9 +101,7 @@ def lbol_main(cli_args=None, device=None):
 
 def _check_supported(args):
     """Raise for the options whose modules the port does not have yet."""
-    if args.sampler == "neuralnet":
-        raise _not_ported("--sampler neuralnet (mlmodel/)", 18)
-    if args.sampler not in ("nmma-ns", "mcmc"):
+    if args.sampler not in ("nmma-ns", "mcmc", "neuralnet"):
         raise ValueError(f"unknown sampler {args.sampler!r}")
     if args.bestfit:
         raise _not_ported("--bestfit (plotting.py)", 19)
@@ -189,6 +187,8 @@ def _single_run(args, device):
     analysis = EMAnalysis(cfg, data=data, priors=priors, device=device)
     write_complete_config(args)
 
+    if args.sampler == "neuralnet":
+        return _neuralnet_run(args, analysis)
     if args.sampler == "mcmc":
         return _mcmc_run(args, analysis)
     if args.skip_sampling:
@@ -209,6 +209,42 @@ def _single_run(args, device):
     result = analysis.run(verbose=True)
     print(f"log-evidence: {result.logz:.3f} +/- {result.logz_err:.3f} "
           f"({result.ncall} likelihood calls)")
+    return analysis
+
+
+def _neuralnet_run(args, analysis):
+    """``--sampler neuralnet``: likelihood-free inference (the reference's
+    nnanalysis, em/analysis.py:176-307; nmma_tpu/cli/lightcurve_analysis.py
+    :191-210). Writes ``{label}_result.npz`` with the JAX package's keys
+    (``sampler``, ``posterior_*``); the trained posterior and the stages'
+    seconds are kept on the returned analysis."""
+    import numpy as np
+
+    from ..mlmodel.inference import nnanalysis
+    embedding = None
+    if args.lfi_pretrained_embedding:
+        if not args.lfi_embedding_weights:
+            raise ValueError(
+                "--lfi-pretrained-embedding needs --lfi-embedding-weights: "
+                "the path of the reference's similarity_embedding_weights"
+                ".pth")
+        embedding = args.lfi_embedding_weights
+    cfg = analysis.config
+    timings = {}
+    post, posterior = nnanalysis(
+        analysis, seed=args.seed, verbose=args.verbose,
+        pretrained_embedding=embedding,
+        vicreg_pretrain=args.lfi_vicreg_pretrain,
+        vicreg_epochs=args.lfi_vicreg_epochs, timings=timings)
+    os.makedirs(cfg.outdir, exist_ok=True)
+    np.savez(os.path.join(cfg.outdir, f"{cfg.label}_result.npz"),
+             sampler="neuralnet",
+             **{f"posterior_{k}": np.asarray(v) for k, v in post.items()})
+    print(f"neuralnet posterior: {len(next(iter(post.values())))} samples "
+          f"written to {cfg.outdir}/{cfg.label}_result.npz")
+    analysis.neuralnet_posterior = post
+    analysis.lfi_posterior = posterior
+    analysis.lfi_timings = timings
     return analysis
 
 

@@ -183,6 +183,10 @@ def base_analysis_parser(description=""):
                         "simulated set before flow training (reference "
                         "mlmodel/embedding.py two-stage pipeline)")
     p.add_argument("--lfi-vicreg-epochs", type=int, default=60)
+    p.add_argument("--lfi-embedding-weights", type=str, default=None,
+                   help="the reference's similarity_embedding_weights.pth "
+                        "for --lfi-pretrained-embedding (it is not in the "
+                        "repository)")
     p.add_argument("--detection-limit-fits-file", type=str, default=None,
                    help="m4opt LIMMAG HEALPix FITS: the detection limit "
                         "is read at --ra/--dec (reference "
@@ -218,7 +222,8 @@ def base_analysis_parser(description=""):
     # sampler flags (reference defaults: nlive=2048, dlogz=0.1)
     p.add_argument("--sampler", type=str, default="nmma-ns",
                    help="nmma-ns (vectorized nested sampling) or mcmc "
-                        "(ensemble MCMC); neuralnet is not in the port yet")
+                        "(ensemble MCMC) or neuralnet (likelihood-free "
+                        "inference)")
     p.add_argument("--mcmc-walkers", type=int, default=256)
     p.add_argument("--mcmc-sweeps", type=int, default=1500)
     p.add_argument("--mcmc-temps", type=int, default=1,

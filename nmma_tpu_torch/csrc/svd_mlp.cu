@@ -7,9 +7,12 @@
 //     c    = hid . W2[f] + b2[f]             [C]
 //     mags = c . VAq[f] + off[f]             [Q]   -> out[b, f, :]
 //
-// Built for two surrogates: P=4 (the production Bu2019lm, H=2048) and P=2
-// (the sparse Bu2019lm of the joint GW+EM+EOS path, H=128); P is a template
-// parameter, and the entry point dispatches on it.
+// Two specialised instantiations serve the surrogates of the main paths:
+// P=4 (the production Bu2019lm, H=2048) and P=2 (the sparse Bu2019lm of the
+// joint GW+EM+EOS path, H=128), both with C=10; P is a template parameter.
+// Every other shape a trained surrogate can have (P from 1 to 16, any C: the
+// other grid families and other --svd-ncoeff) takes the general kernel at
+// the end of this file, which is right for all of them but not tuned.
 //
 // Bound: per eval 2 F (P H + H C + C Q) FLOP = 543,096 at the production
 // dims (P=4, H=2048, C=10, Q=150, F=9), i.e. 4.45 GFLOP at B=8192, against
@@ -245,12 +248,115 @@ cudaError_t launch(const float* x, const float* w1, const float* b1, const float
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// General path: any P in [1, MAX_P], any C >= 1, any H, Q.
+//
+// One thread per live point, GT live points a block, one block per (tile,
+// filter). The filter's weights are staged in tiles of HT hidden units into
+// shared memory, zero-padded to PM inputs and CC coefficients, and every
+// thread reads the same word (a broadcast). C is taken in chunks of CC
+// coefficients: each chunk recomputes the hidden activations (cheap next to
+// the loads at the usual C <= 16) and adds its share of layer 3 to out, the
+// first chunk writing and the last adding off. Padded units and inputs are
+// zeros and add nothing.
+constexpr int MAX_P = 16;
+constexpr int GT = 128;                   // live points (threads) a block
+constexpr int HT = 64;                    // hidden units a staged tile
+
+template <int PM, int CC>
+__global__ void __launch_bounds__(GT)
+svd_mlp_general_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ w2,
+                       const float* __restrict__ b2, const float* __restrict__ vaq,
+                       const float* __restrict__ off, float* __restrict__ out,
+                       int B, int P, int H, int C_, int Q, int F) {
+  __shared__ float sw1[PM][HT];
+  __shared__ float sb1[HT];
+  __shared__ float sw2[HT][CC];
+  __shared__ float coef[GT][CC + 1];
+
+  const int f = blockIdx.y;
+  const int b0 = blockIdx.x * GT;
+  const int tid = threadIdx.x;
+  const int b = b0 + tid;
+  float xr[PM];
+#pragma unroll
+  for (int p = 0; p < PM; ++p) xr[p] = (b < B && p < P) ? x[(size_t)b * P + p] : 0.f;
+
+  const float* w1f = w1 + (size_t)f * P * H;
+  const float* b1f = b1 + (size_t)f * H;
+  const float* w2f = w2 + (size_t)f * H * C_;
+  const float* vaqf = vaq + (size_t)f * C_ * Q;
+  const float* offf = off + (size_t)f * Q;
+  const int rows = min(GT, B - b0);
+
+  for (int c0 = 0; c0 < C_; c0 += CC) {
+    const int nc = min(CC, C_ - c0);
+    float acc[CC];
+#pragma unroll
+    for (int c = 0; c < CC; ++c) acc[c] = 0.f;
+    for (int h0 = 0; h0 < H; h0 += HT) {
+      __syncthreads();  // the previous tile is consumed
+      for (int i = tid; i < PM * HT; i += GT) {
+        const int p = i / HT, hh = i - p * HT, h = h0 + hh;
+        sw1[p][hh] = (p < P && h < H) ? w1f[(size_t)p * H + h] : 0.f;
+      }
+      for (int hh = tid; hh < HT; hh += GT) sb1[hh] = (h0 + hh < H) ? b1f[h0 + hh] : 0.f;
+      for (int i = tid; i < HT * CC; i += GT) {
+        const int hh = i / CC, c = i - hh * CC, h = h0 + hh;
+        sw2[hh][c] = (h < H && c < nc) ? w2f[(size_t)h * C_ + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int hh = 0; hh < HT; ++hh) {
+        float hid = sb1[hh];
+#pragma unroll
+        for (int p = 0; p < PM; ++p) hid = fmaf(xr[p], sw1[p][hh], hid);
+        hid = fmaxf(hid, 0.f);
+#pragma unroll
+        for (int c = 0; c < CC; ++c) acc[c] = fmaf(hid, sw2[hh][c], acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CC; ++c) coef[tid][c] = (c < nc) ? acc[c] + b2[f * C_ + c0 + c] : 0.f;
+    __syncthreads();
+    const bool last = c0 + CC >= C_;
+    for (int q = tid; q < Q; q += GT) {
+      float v[CC];
+#pragma unroll
+      for (int c = 0; c < CC; ++c) v[c] = (c < nc) ? __ldg(vaqf + (size_t)(c0 + c) * Q + q) : 0.f;
+      const float o = __ldg(offf + q);
+      float* dst = out + ((size_t)b0 * F + f) * Q + q;
+      for (int r = 0; r < rows; ++r) {
+        float m = 0.f;
+#pragma unroll
+        for (int c = 0; c < CC; ++c) m = fmaf(coef[r][c], v[c], m);
+        if (c0 > 0) m += dst[(size_t)r * F * Q];
+        dst[(size_t)r * F * Q] = last ? m + o : m;
+      }
+    }
+    __syncthreads();  // coef is rewritten by the next chunk
+  }
+}
+
+template <int PM, int CC>
+cudaError_t launch_general(const float* x, const float* w1, const float* b1,
+                           const float* w2, const float* b2, const float* vaq,
+                           const float* off, float* out, int B, int P, int H,
+                           int C_, int Q, int F, cudaStream_t stream) {
+  const dim3 grid((B + GT - 1) / GT, F);
+  svd_mlp_general_kernel<PM, CC><<<grid, GT, 0, stream>>>(
+      x, w1, b1, w2, b2, vaq, off, out, B, P, H, C_, Q, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers to contiguous
 // f32 arrays: x [B,P], w1 [F,P,H], b1 [F,H], w2 [F,H,C], b2 [F,C],
 // vaq [F,C,Q], off [F,Q], out [B,F,Q], all on CUDA device `device`; the
-// launch goes to `stream`. Built for P == 4 and P == 2, with C == 10.
+// launch goes to `stream`. (P, C) = (4, 10) and (2, 10) take the specialised
+// kernel, every other P in [1, 16] and C >= 1 the general one.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* b2,
@@ -261,10 +367,7 @@ extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
   // this library has its own runtime state: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if ((P_ != 4 && P_ != 2) || C_ != C || H <= 0 || Q <= 0 || F <= 0 || F > 65535) return cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (got != cudaSuccess) return static_cast<int>(got);
+  if (P_ < 1 || P_ > MAX_P || C_ < 1 || H <= 0 || Q <= 0 || F <= 0 || F > 65535) return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -274,6 +377,18 @@ extern "C" int nmma_svd_mlp_mags(const void* x, const void* w1, const void* b1,
   const float* offf = static_cast<const float*>(off);
   float* outf = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((P_ != 4 && P_ != 2) || C_ != C) {
+    if (P_ <= 8)
+      return static_cast<int>(C_ <= 8
+          ? launch_general<8, 8>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, P_, H, C_, Q, F, s)
+          : launch_general<8, 16>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, P_, H, C_, Q, F, s));
+    return static_cast<int>(C_ <= 8
+        ? launch_general<16, 8>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, P_, H, C_, Q, F, s)
+        : launch_general<16, 16>(xf, w1f, b1f, w2f, b2f, vaqf, offf, outf, B, P_, H, C_, Q, F, s));
+  }
+  int sms = 0;
+  const cudaError_t got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (got != cudaSuccess) return static_cast<int>(got);
   // 192 live points a block where that grid covers three quarters of the
   // SMs (B >= 1921 at F = 9), else 16 (B = 128: 72 blocks)
   const auto fills = [&](int nb) { return 4LL * ((B + nb - 1) / nb) * F >= 3LL * sms; };

@@ -49,6 +49,10 @@ class SVDModelData(nn.Module):
         if missing:
             raise KeyError(f"surrogate arrays missing {missing}")
         device = resolve_device(device)
+        # the host arrays as given, for save and continued training
+        self.host = {k: np.asarray(arrays[k]) for k in
+                     ("tt", "va", "mins", "maxs", "param_mins",
+                      "param_maxs")}
         self.filters = tuple(str(f) for f in arrays["filters"])
         self.parameter_names = tuple(str(p) for p in arrays["parameter_names"])
         self.tt = np.asarray(arrays["tt"], dtype=np.float64)
@@ -83,6 +87,17 @@ class SVDModelData(nn.Module):
         """Read an ``.npz`` surrogate artifact onto ``device``."""
         with np.load(path, allow_pickle=False) as z:
             return svd_from_numpy({k: z[k] for k in z.files}, device)
+
+    def save(self, path):
+        """Write the ``.npz`` artifact under the JAX package's keys
+        (nmma_tpu/models/svd.py: SVDModelData.save), so either package
+        loads what the other trained."""
+        np.savez_compressed(
+            path, **self.host,
+            **{k: getattr(self, k).detach().cpu().numpy()
+               for k in ("w1", "b1", "w2", "b2")},
+            filters=np.asarray(self.filters),
+            parameter_names=np.asarray(self.parameter_names))
 
     @property
     def n_coeff(self):

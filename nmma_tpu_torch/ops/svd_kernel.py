@@ -5,7 +5,11 @@ Per live point and filter it computes ``relu(x W1 + b1) W2 + b2`` and
 projects the C coefficients through ``va_q`` (denormalisation and time
 interpolation folded in, ``models/svd.py: operator_rankc``) onto Q times.
 The CUDA kernel (``csrc/svd_mlp.cu``) keeps the hidden activations
-``[B, F, H]`` on the SM; only ``[B, F, Q]`` is written.
+``[B, F, H]`` on the SM; only ``[B, F, Q]`` is written. The surrogates of the
+main paths, (P, C) = (4, 10) and (2, 10), take specialised instantiations;
+every other P up to 16 with any C (the other grid families, other
+``--svd-ncoeff``) takes a general kernel of the same library
+(``kernel_route``).
 
 CUDA tensors go to the kernel and CPU tensors to the plain version; there
 is no fallback from one to the other.
@@ -20,10 +24,22 @@ from .. import _kernels
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
 
-# parameter counts the kernel is built for: the production Bu2019lm (4) and
-# the sparse Bu2019lm of the joint path (2)
-KERNEL_PS = (2, 4)
-KERNEL_C = 10        # coefficient count the kernel is built for
+# (P, C) of the specialised instantiations: the production Bu2019lm (4, 10)
+# and the sparse Bu2019lm of the joint path (2, 10); every other P up to
+# MAX_P, with any C, takes the general kernel
+SPECIALISED = ((4, 10), (2, 10))
+MAX_P = 16
+
+
+def kernel_route(p, c):
+    """Which K1 kernel a surrogate of P inputs and C coefficients takes:
+    ``"specialised"`` or ``"general"``; raises ValueError for a shape no
+    kernel takes (P outside 1..MAX_P, C < 1)."""
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"the K1 kernel takes P from 1 to {MAX_P}; got P={p}")
+    if c < 1:
+        raise ValueError(f"the K1 kernel needs C >= 1; got C={c}")
+    return "specialised" if (p, c) in SPECIALISED else "general"
 
 
 def svd_surrogate_mags_plain(x, w1, b1, w2c, b2, va_q, off_q):
@@ -75,9 +91,7 @@ def svd_surrogate_mags(x, w1, b1, w2c, b2, va_q, off_q):
     b, p = x.shape
     n_f, _, h = w1.shape
     c, q = w2c.shape[2], va_q.shape[2]
-    if p not in KERNEL_PS or c != KERNEL_C:
-        raise ValueError(f"the K1 kernel takes P in {KERNEL_PS} and "
-                         f"C={KERNEL_C}; got P={p}, C={c}")
+    kernel_route(p, c)
     out = torch.empty((b, n_f, q), dtype=torch.float32, device=x.device)
     if b == 0:
         return out

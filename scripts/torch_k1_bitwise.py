@@ -10,10 +10,11 @@ parent commit unpacked with `git archive` into a git-ignored directory);
 its K1 must have the C interface of nmma_tpu_torch/_kernels.py. Both trees'
 svd_mlp.cu are built with the same nvcc flags (scripts/compare_kernels.py's
 `build`) and fed the same operands: the production surrogate (P = 4) on the
-main path's grid geomspace(0.01, 14, 150), at B = 1, 128, 8192 and 8199. One
-JSON line per batch says whether the two trees' magnitudes are equal bit for
-bit, with the card's name and power limit; the script exits 1 if any batch
-differs.
+main path's grid geomspace(0.01, 14, 150) and the sparse surrogate (P = 2)
+on config 5's geomspace(0.1, 14, 100), at B = 1, 128, 8192 and 8199. One
+JSON line per surrogate and batch says whether the two trees' magnitudes are
+equal bit for bit, with the card's name and power limit; the script exits 1
+if any differs.
 """
 
 from __future__ import annotations
@@ -55,13 +56,6 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     dev = "cuda"
     stream = torch.cuda.current_stream().cuda_stream
-    svd = SVDModelData.load(chip_smoke.ARTIFACT, device=dev)
-    t_days = torch.tensor(np.geomspace(0.01, 14.0, 150),
-                          dtype=torch.float32, device=dev)
-    va_q, off_q, _ = svd.operator_rankc(t_days)
-    weights = (svd.w1, svd.b1, svd.w2, svd.b2, va_q, off_q)
-    n_f, n_p, n_h = svd.w1.shape
-    n_c, n_q = svd.w2.shape[2], va_q.shape[2]
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     same = True
@@ -69,26 +63,37 @@ def main(argv=None) -> int:
         fns = {"baseline": build(os.path.abspath(args.baseline), tmp,
                                  "base")["svd_mlp"],
                "change": build(_kernels.CSRC, tmp, "change")["svd_mlp"]}
-        for n_b in BATCHES:
-            x = torch.rand((n_b, n_p), generator=gen, device=dev)
-            mags = {}
-            for tree, fn in fns.items():
-                out = torch.empty((n_b, n_f, n_q), device=dev)
-                code = fn(*[t.data_ptr() for t in (x, *weights)],
-                          out.data_ptr(), n_b, n_p, n_h, n_c, n_q, n_f, 0,
-                          stream)
-                if code:
-                    raise RuntimeError(f"{tree} K1 launch failed: {code}")
-                mags[tree] = out
-            torch.cuda.synchronize()
-            equal = bool(torch.equal(mags["baseline"], mags["change"]))
-            same = same and equal
-            print(json.dumps({
-                "kernel": "svd_mlp", "batch": n_b, "P": n_p, "card": card,
-                "bitwise_equal": equal,
-                "max_abs_diff": float((mags["baseline"]
-                                       - mags["change"]).abs().max())}),
-                flush=True)
+        for path, grid in ((chip_smoke.ARTIFACT, (0.01, 14.0, 150)),
+                           (chip_smoke.SPARSE_ARTIFACT,
+                            chip_smoke.JOINT_SAMPLE_TIMES)):
+            svd = SVDModelData.load(path, device=dev)
+            t_days = torch.tensor(np.geomspace(*grid), dtype=torch.float32,
+                                  device=dev)
+            va_q, off_q, _ = svd.operator_rankc(t_days)
+            weights = (svd.w1, svd.b1, svd.w2, svd.b2, va_q, off_q)
+            n_f, n_p, n_h = svd.w1.shape
+            n_c, n_q = svd.w2.shape[2], va_q.shape[2]
+            for n_b in BATCHES:
+                x = torch.rand((n_b, n_p), generator=gen, device=dev)
+                mags = {}
+                for tree, fn in fns.items():
+                    out = torch.empty((n_b, n_f, n_q), device=dev)
+                    code = fn(*[t.data_ptr() for t in (x, *weights)],
+                              out.data_ptr(), n_b, n_p, n_h, n_c, n_q, n_f,
+                              0, stream)
+                    if code:
+                        raise RuntimeError(f"{tree} K1 launch failed: "
+                                           f"{code}")
+                    mags[tree] = out
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(mags["baseline"], mags["change"]))
+                same = same and equal
+                print(json.dumps({
+                    "kernel": "svd_mlp", "batch": n_b, "P": n_p, "C": n_c,
+                    "card": card, "bitwise_equal": equal,
+                    "max_abs_diff": float((mags["baseline"]
+                                           - mags["change"]).abs().max())}),
+                    flush=True)
     return 0 if same else 1
 
 

@@ -18,8 +18,10 @@ A tiny full run of the port's CLI (nlive 64, dlogz 1) writes every result
 file and its checkpoint, and ``--skip-sampling`` regenerates its logZ from
 the checkpoint bit for bit. ``--sampler mcmc`` writes the JAX package's
 result keys in both packages, and ``EMAnalysis.run_mcmc`` agrees with a
-nested run on the posterior medians. Each option whose module the port
-does not have yet raises NotImplementedError naming its ROADMAP item; the
+nested run on the posterior medians. ``--sampler neuralnet`` runs in the
+port and writes the JAX package's result keys. Each option whose module
+the port does not have yet raises NotImplementedError naming its ROADMAP
+item; the
 sky-map options (--fits-file, --detection-limit-fits-file) and
 --fiesta-surrogates-dir give the JAX package's priors, detection limit and
 logL.
@@ -146,7 +148,6 @@ def test_cli_full_run_and_skip_sampling(config):
 
 
 UNPORTED = {
-    "neuralnet": (["--sampler", "neuralnet"], 18),
     "bestfit": (["--bestfit"], 19),
     "plot": (["--plot"], 19),
     "ztf": (["--ztf-sampling"], 19),
@@ -160,6 +161,63 @@ def test_unported_options_name_their_item(config, case):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         t_cli.main([path, "--outdir", str(root / case), "--skip-sampling",
                     *flags], device="cpu")
+
+
+NN_PRIOR = """\
+log10_mej_dyn = Uniform(minimum=-2.8, maximum=-1.8)
+log10_mej_wind = Uniform(minimum=-1.8, maximum=-1.0)
+luminosity_distance = 40.0
+timeshift = 0.0
+"""
+NN_INJECTION = {"log10_mej_dyn": -2.3, "log10_mej_wind": -1.3,
+                "luminosity_distance": 40.0, "timeshift": 0.0,
+                "trigger_time": 60000.0}
+
+
+def test_neuralnet_sampler_runs_on_the_cpu(tmp_path):
+    """--sampler neuralnet in the port (3,000 simulations, 400 epochs,
+    20,000 draws: the JAX package's defaults) on the sparse surrogate: the
+    result file has the JAX package's keys and the posterior median of
+    log10_mej_wind lies near its injection."""
+    (tmp_path / "nn.prior").write_text(NN_PRIOR)
+    t_injections.write_injection_file(
+        tmp_path / "inj.json", {k: [v] for k, v in NN_INJECTION.items()})
+    flags = ["--model", "Bu2019lm_nn",
+             "--svd-path", "artifacts/Bu2019lm_sparse_svd.npz",
+             "--prior", str(tmp_path / "nn.prior"),
+             "--injection", str(tmp_path / "inj.json"),
+             "--filters", "ztfg,ztfr,ztfi", "--tmin", "0.5", "--tmax", "10",
+             "--injection-error-budget", "0.05", "--em-error-budget", "0.1",
+             "--n-tsteps", "24",
+             "--label", "nn", "--outdir", str(tmp_path / "out")]
+    ana = t_cli.main(flags + ["--sampler", "neuralnet"], device="cpu")
+    j_ana = j_cli.main(flags + ["--skip-sampling"])
+    result = np.load(tmp_path / "out" / "nn_result.npz")
+    want = {"sampler"} | {f"posterior_{k}"
+                          for k in j_ana.priors.sampled_names}
+    assert set(result.files) == want
+    assert str(result["sampler"]) == "neuralnet"
+    post = result["posterior_log10_mej_wind"]
+    assert post.shape == (20000,) and np.isfinite(post).all()
+    assert abs(np.median(post) - NN_INJECTION["log10_mej_wind"]) < 0.15
+    assert set(ana.lfi_timings) == {"simulate_s", "train_s", "sample_s"}
+
+
+def test_k1_shape_check():
+    """K1's shape check (ops/svd_kernel.py:kernel_route), which the wrapper
+    runs before any launch: P from 1 to 16 with any C; the specialised
+    instantiations for (4, 10) and (2, 10); P = 17 refused."""
+    from nmma_tpu_torch.ops import svd_kernel
+    assert svd_kernel.kernel_route(4, 10) == "specialised"
+    assert svd_kernel.kernel_route(2, 10) == "specialised"
+    for p in range(1, 17):
+        for c in (1, 6, 8, 10, 40, 1000):
+            want = "specialised" if (p, c) in ((4, 10), (2, 10)) \
+                else "general"
+            assert svd_kernel.kernel_route(p, c) == want
+    for p, c in ((17, 10), (0, 10), (4, 0)):
+        with pytest.raises(ValueError):
+            svd_kernel.kernel_route(p, c)
 
 
 def sky_map_flags(root, case):

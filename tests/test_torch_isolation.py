@@ -59,14 +59,24 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.post_processing.ns_characteristics",
        "nmma_tpu_torch.post_processing.marginalisation",
        "nmma_tpu_torch.post_processing.resampling",
-       "nmma_tpu_torch.post_processing.maximum_mass"}
+       "nmma_tpu_torch.post_processing.maximum_mass",
+       "nmma_tpu_torch.training", "nmma_tpu_torch.training.svd",
+       "nmma_tpu_torch.training.grids", "nmma_tpu_torch.training.gp",
+       "nmma_tpu_torch.training.gp_compact", "nmma_tpu_torch.cli.tools",
+       "nmma_tpu_torch.mlmodel", "nmma_tpu_torch.mlmodel.flows",
+       "nmma_tpu_torch.mlmodel.embedding", "nmma_tpu_torch.mlmodel.inference",
+       "nmma_tpu_torch.mlmodel.vicreg", "nmma_tpu_torch.mlmodel.pretrained",
+       "nmma_tpu_torch.mlmodel.convert", "nmma_tpu_torch.eos.emulator",
+       "nmma_tpu_torch.eos.lec"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
 from nmma_tpu_torch import eos
-from nmma_tpu_torch.cli import joint_main, lightcurve_analysis
+from nmma_tpu_torch.cli import joint_main, lightcurve_analysis, tools
+from nmma_tpu_torch.eos import emulator, lec
+from nmma_tpu_torch import mlmodel, training
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
@@ -108,6 +118,28 @@ ENTRY_POINTS = {
     "post_processing.GWEMResampler": lambda: GWEMResampler(None, None, None),
     "post_processing.MaximumMassResampler": lambda: MaximumMassResampler(
         None, None, None),
+    "cli.tools.create_svdmodel": lambda: tools.create_svdmodel(
+        ["--model", "Bu2019lm", "--data-path", "never-read"]),
+    "cli.tools.svdmodel_benchmark": lambda: tools.svdmodel_benchmark(
+        ["--model", "Bu2019lm", "--data-path", "never-read"]),
+    "training.train_svd_model": lambda: training.train_svd_model(
+        [], []),
+    "training.fit_gp_coefficients": lambda: training.fit_gp_coefficients(
+        None, None),
+    "training.fit_compact_gp": lambda: training.fit_compact_gp(None, None),
+    "training.load_gp_surrogate": lambda: training.load_gp_surrogate(
+        "never-read"),
+    "mlmodel.train_flow_posterior": lambda: mlmodel.train_flow_posterior(
+        None, None, []),
+    "mlmodel.pretrain_similarity_embedding":
+        lambda: mlmodel.pretrain_similarity_embedding(None),
+    "mlmodel.SimilarityEmbedding.load": lambda: mlmodel.SimilarityEmbedding
+        .load("never-read"),
+    "eos.emulator.TOVEmulator": lambda: emulator.TOVEmulator(
+        ["S0"], *[[0.0]] * 9),
+    "eos.emulator.train_tov_emulator": lambda: emulator.train_tov_emulator(
+        None),
+    "eos.lec.LECEmulatorSet.load": lambda: lec.LECEmulatorSet.from_numpy(),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():
