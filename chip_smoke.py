@@ -21,7 +21,8 @@ P=2, H=128, through K1, and EOS tables the port's TOV solver makes); then
 fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
 (no kernel of their own; Bu2019lm through K1 where they use it); then
 K1's general path, surrogate training, likelihood-free inference and the
-EOS emulators (K1 only):
+EOS emulators (K1 only); then survey cadences, the command-line tools, the
+native table loader and the model registry (K1 only):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -98,7 +99,8 @@ EOS emulators (K1 only):
               walks (the injection's light curve, the initial live set, one
               per walk step), no K2 or K3 launch; every result file and the
               checkpoint; main([config, "--skip-sampling"]) must regenerate
-              the run's logZ bit for bit.
+              the run's logZ bit for bit; the logL at the injection (its
+              first and last epochs on the model grid's end nodes) finite.
  14. kn_models
               HoNa2020, blackbody_fixedT, PL_BB_fixedT and
               synchrotron_powerlaw (plain PyTorch, no kernel): batched_logl
@@ -305,6 +307,41 @@ EOS emulators (K1 only):
               and the fit; M_TOV and R_1.4 at 32 held-out NEP points against
               the port's TOV solver; the emulator step and a seeded LEC-13
               set at B = 8192, ms and card against CPU.
+
+ 43. cadences
+              (phases 43 and 46 run last; 44 after phase 37, on its tmp
+              files; 45 after phase 39, on its grid) create_light_curve_data
+              on the production surrogate at TRIGGER_MJD with --ztf-sampling,
+              --ztf-uncertainties and --ztf-ToO 180, and with
+              --rubin-ToO-type platinum, 4 seeds each, on the card (one K1
+              launch a call) and on the CPU: epochs and limits bit for bit,
+              magnitudes within 1e-4 mag, detection flags and errors equal
+              but at detections within 1e-4 mag of their limit or of an
+              uncertainty interval's edge (counted); epochs and detections
+              per filter; then the [cli] configuration with --ztf-sampling
+              --ztf-uncertainties on ztfg, ztfr, ztfi, capped at 40
+              iterations: K1 launches 2 + iterations x walks, no K2/K3.
+ 44. tools    each entry point the twelfth slice added to cli/tools.py once,
+              on the card where it runs a model or a sampler:
+              lightcurve-generation on 16 injections (16 K1 launches),
+              nmma-create-injection --ejecta-conversion --eos-dir on the
+              [eos] tables, gwem-resampling (nlive 128, 40 iterations),
+              gwem-Hubble-estimate (with and without GW posteriors),
+              combine-EOS, convert-skyportal-lcs, nmma-make-lcs on the
+              [possis] spectrum, multi-config-analysis (one subprocess of
+              the port's CLI on the card, rc 0), the two slurm tools;
+              seconds and files written.
+ 45. native   the native loader's library (native/, else built into
+              _build/, else np.loadtxt), then parse_many over the 1,024
+              bulla files of phase 39 against np.loadtxt, bit for bit, and
+              the seconds of each.
+ 46. registry a reference-layout registry tree written from the production
+              surrogate and served on 127.0.0.1: download_model, ingestion
+              onto the card, batched_logl at B = 8192 (one K1 launch) equal
+              bit for bit to the .npz surrogate's (printed as skipped,
+              naming the package, without joblib or h5py); then get_model
+              through a hook copying the .npz and load_registered_model,
+              with the same check.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1459,7 +1496,12 @@ def cli_path(np, torch):
             raise RuntimeError(f"--skip-sampling gave logZ "
                                f"{again.result.logz} ({regenerated} on "
                                f"file), the run {result.logz}")
+        logl_injection = cli_injection_logl(torch, analysis)
+        if not logl_injection > -1e29:
+            raise RuntimeError(f"the [cli] logL at its injection is "
+                               f"{logl_injection}")
         say("cli", logz=f"{result.logz:.4f}",
+            logl_injection=f"{logl_injection:.3f}",
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
             ndim=analysis.priors.ndim, k1_launches=launches[0],
@@ -1468,6 +1510,17 @@ def cli_path(np, torch):
             skip_sampling_logz=repr(again.result.logz))
         posterior = analysis.posterior_samples()
     return launches[0], posterior
+
+
+def cli_injection_logl(torch, analysis):
+    """The [cli] analysis's logL at its own injection (INJECTION with
+    CLI_INJECTION's extinction; the systematics at their priors'
+    midpoints), without launching K1 into the counts of the run."""
+    injection = {**INJECTION, **CLI_INJECTION}
+    u = [[(injection[n] - analysis.priors[n].minimum)
+          / (analysis.priors[n].maximum - analysis.priors[n].minimum)
+          if n in injection else 0.5 for n in analysis.priors.sampled_names]]
+    return float(analysis.batched_logl(torch.tensor(u, device=DEVICE))[0])
 
 
 def kn_models(np, torch, gen):
@@ -3901,28 +3954,37 @@ def train_on_card_and_cpu(np, torch, entries, pnames, filters):
             float(np.abs(p_card - p_cpu).max()), l_card)
 
 
-def trained_cli(np, torch, svd_path, tmp):
-    """The [cli] configuration on the trained surrogate: a nested run
-    capped at TRAIN_CLI_CAP iterations; returns (iterations, K1 launches,
-    logZ, seconds)."""
+def capped_cli(cap):
+    """lightcurve_analysis with its nested sampler capped at ``cap``
+    iterations, as a context manager."""
+    import contextlib
     import dataclasses
 
     from nmma_tpu_torch.cli import lightcurve_analysis
 
-    config, config_path = cli_config(tmp)
-    real = lightcurve_analysis.sampler_config_from_args
+    @contextlib.contextmanager
+    def patch():
+        real = lightcurve_analysis.sampler_config_from_args
+        lightcurve_analysis.sampler_config_from_args = \
+            lambda args: dataclasses.replace(real(args), max_iter=cap)
+        try:
+            yield lightcurve_analysis
+        finally:
+            lightcurve_analysis.sampler_config_from_args = real
+    return patch()
 
-    def capped(args):
-        return dataclasses.replace(real(args), max_iter=TRAIN_CLI_CAP)
-    lightcurve_analysis.sampler_config_from_args = capped
+
+def trained_cli(np, torch, svd_path, tmp):
+    """The [cli] configuration on the trained surrogate: a nested run
+    capped at TRAIN_CLI_CAP iterations; returns (iterations, K1 launches,
+    logZ, seconds)."""
+    config, config_path = cli_config(tmp)
     t0 = time.time()
     reset_launches()
-    try:
-        analysis = lightcurve_analysis.main(
+    with capped_cli(TRAIN_CLI_CAP) as cli:
+        analysis = cli.main(
             [config_path, "--svd-path", svd_path, "--model",
              "Bu2019lm_trained", "--label", "trained"])
-    finally:
-        lightcurve_analysis.sampler_config_from_args = real
     torch.cuda.synchronize()
     result = analysis.result
     expected = 2 + result.niter * analysis.config.sampler.walks
@@ -4348,9 +4410,10 @@ def tov_emulator_phase(np, torch, gen):
 
 
 def training_path(np, torch):
-    """The item-18 phases: [k1_general], [svd_train], [gp_train], [lfi],
-    [tov_emulator]. Returns the fields they add to K1's kernel-line
-    entry."""
+    """The item-18 phases: [k1_general], [svd_train], [native] (on
+    [svd_train]'s grid), [gp_train], [lfi], [tov_emulator]. Returns the
+    fields they add to K1's kernel-line entry, and [native]'s seconds as
+    native_s."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(18)
     t0 = time.time()
@@ -4358,11 +4421,449 @@ def training_path(np, torch):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         grid_dir, train_fields = svd_train(np, torch, gen, tmp)
         fields.update(train_fields)
+        t_native = time.time()
+        native_phase(np, grid_dir)
+        fields["native_s"] = time.time() - t_native
         gp_train(np, torch, gen, grid_dir, tmp)
         fields["launches_lfi"] = lfi_phase(np, torch, tmp)
     tov_emulator_phase(np, torch, gen)
     say("training_phases", seconds=f"{time.time() - t0:.2f}")
     return fields
+
+
+# --- item 19a: survey cadences, the thin tools, the native loader, the
+# model registry (K1 only) ---
+
+CADENCES = {"ztf": dict(ztf_sampling=True, ztf_uncertainties=True,
+                        ztf_too="180"),
+            "rubin": dict(rubin_too_type="platinum")}
+CADENCE_SEEDS = (1, 2, 3, 4)
+CADENCE_EDGE = 1e-4     # mag: flags and errors may differ this near an edge
+CADENCE_CLI_CAP = 40
+CADENCE_FILTERS = "ztfg,ztfr,ztfi"     # ZTF epochs exist in these only
+CADENCE_SYSTEMATICS = {
+    "optical": {"filters": ["ztfg", "ztfr", "ztfi"], "time_nodes": 3,
+                "time_range": "linear 0.5 12.0",
+                "prior": "Uniform(minimum=0.0, maximum=1.0)"}}
+TOOLS_GENERATION_ROWS = 16
+TOOLS_INJECTIONS = 64
+TOOLS_RESAMPLING_NLIVE = 128
+REGISTRY_MODEL = "Bu2019lm_registry_tf"
+REGISTRY_CORE = "Bu2019lm_registry"        # the name it registers under
+# the surrogate's filters whose names the registry keeps (ps1::z is ps1__z)
+REGISTRY_FILTERS = ["sdssu", "ztfg", "ztfr", "ztfi", "2massj", "2massh",
+                    "2massks"]
+
+
+def cadences_phase(np, torch):
+    """[cadences]: create_light_curve_data on the production surrogate at
+    TRIGGER_MJD with each of CADENCES and CADENCE_SEEDS, on the card (one
+    K1 launch) and with device="cpu": epochs and limits equal bit for bit,
+    magnitudes within K1_TOL, detection flags and drawn errors equal except
+    at epochs within CADENCE_EDGE of their limit or of an uncertainty
+    interval's edge (counted). Then the [cli] configuration with
+    --ztf-sampling --ztf-uncertainties on CADENCE_FILTERS, capped at
+    CADENCE_CLI_CAP iterations: K1 launches 2 + iterations x walks. Returns
+    the CLI run's K1 launches."""
+    from nmma_tpu_torch.injections import create_light_curve_data
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+    from nmma_tpu_torch.strategies import ZTFObservingModel
+
+    svd_cpu = SVDModelData.load(ARTIFACT, device="cpu")
+    make_svd_source_model(MODEL + "_cpu", svd_cpu)
+    filters = list(svd_cpu.filters)
+    edges = ZTFObservingModel().interval_edges()
+    for case, kwargs in CADENCES.items():
+        epochs, detections, near, seconds = {}, {}, 0, 0.0
+        for seed in CADENCE_SEEDS:
+            limits, limits_cpu = {}, {}
+            reset_launches()
+            t0 = time.time()
+            card = create_light_curve_data(
+                INJECTION, MODEL, filters, trigger_time=TRIGGER_MJD,
+                seed=seed, keep_infinite_data=True, ztf_limits=limits,
+                **kwargs)
+            torch.cuda.synchronize()
+            seconds += time.time() - t0
+            assert_launches("cadences", 1)
+            cpu = create_light_curve_data(
+                INJECTION, MODEL + "_cpu", filters, trigger_time=TRIGGER_MJD,
+                seed=seed, keep_infinite_data=True, ztf_limits=limits_cpu,
+                device="cpu", **kwargs)
+            if sorted(card) != sorted(cpu) or not card:
+                raise RuntimeError(f"[cadences] {case}: filters {sorted(card)}"
+                                   f" on the card, {sorted(cpu)} on the CPU")
+            for f in cpu:
+                g, w = card[f], cpu[f]
+                if not np.array_equal(g["time"], w["time"]) or not all(
+                        np.array_equal(limits[k], limits_cpu[k])
+                        for k in limits_cpu):
+                    raise RuntimeError(f"[cadences] {case} {f}: epochs or "
+                                       "limits differ from the CPU's")
+                fin = np.isfinite(w["mag"])
+                if not np.array_equal(np.isfinite(g["mag"]), fin) or (
+                        fin.any() and np.abs(g["mag"][fin] - w["mag"][fin])
+                        .max() > K1_TOL):
+                    raise RuntimeError(f"[cadences] {case} {f}: magnitudes "
+                                       "off the CPU's")
+                close = np.zeros(len(w["mag"]), dtype=bool)
+                if f in limits_cpu:
+                    # a detection (on either side) this near its limit or
+                    # an interval edge may flip or draw another error
+                    for side in (g, w):
+                        mag = np.where(np.isfinite(side["mag_error"]),
+                                       side["mag"], np.inf)
+                        close |= (np.abs(mag - limits_cpu[f])
+                                  <= CADENCE_EDGE) | (np.abs(
+                                      mag[:, None] - edges[None, :])
+                                      .min(axis=1) <= CADENCE_EDGE)
+                if not np.array_equal(g["mag_error"][~close],
+                                      w["mag_error"][~close]):
+                    raise RuntimeError(f"[cadences] {case} {f}: detections "
+                                       "or errors differ off the edges")
+                near += int(close.sum())
+                epochs[f] = epochs.get(f, 0) + len(w["time"])
+                detections[f] = detections.get(f, 0) + int(
+                    np.isfinite(g["mag_error"]).sum())
+        say("cadences", case=case, seeds=len(CADENCE_SEEDS),
+            seconds=f"{seconds:.3f}", near_edge=near,
+            epochs=",".join(f"{f}:{n}" for f, n in sorted(epochs.items())),
+            detections=",".join(f"{f}:{n}" for f, n in
+                                sorted(detections.items())))
+
+    import yaml
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cadences_") as tmp:
+        config, config_path = cli_config(tmp)
+        with open(os.path.join(tmp, "ztf_systematics.yaml"), "w") as f:
+            yaml.safe_dump(CADENCE_SYSTEMATICS, f)
+        t0 = time.time()
+        reset_launches()
+        with capped_cli(CADENCE_CLI_CAP) as cli:
+            analysis = cli.main([
+                config_path, "--ztf-sampling", "--ztf-uncertainties",
+                "--filters", CADENCE_FILTERS, "--systematics-file",
+                os.path.join(tmp, "ztf_systematics.yaml"), "--label",
+                "cadences"])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        result = analysis.result
+        launches = 2 + result.niter * analysis.config.sampler.walks
+        assert_launches("cadences", launches)
+        if not math.isfinite(result.logz) or \
+                result.niter > CADENCE_CLI_CAP:
+            raise RuntimeError(f"[cadences] CLI run: logZ {result.logz} "
+                               f"after {result.niter} iterations")
+        data = analysis.data_dict
+        say("cadences", case="cli", iterations=result.niter,
+            logz=f"{result.logz:.4f}", seconds=f"{seconds:.2f}",
+            k1_launches=launches, k1_expected=f"2+{result.niter}x"
+            f"{analysis.config.sampler.walks}",
+            epochs=",".join(f"{f}:{len(data[f]['time'])}" for f in
+                            sorted(data)))
+    return launches
+
+
+def tools_phase(np, torch, tmp):
+    """[tools]: each entry point cli/tools.py gained in this slice, once on
+    the card where it runs a model or a sampler, on files earlier phases
+    wrote under ``tmp`` ([eos]'s tables, [possis]'s spectrum) or seeded
+    ones; seconds and files written for each. lightcurve-generation on a
+    TOOLS_GENERATION_ROWS-row injection file must launch K1 once a row;
+    multi-config-analysis starts one subprocess of the port's CLI (rc 0, on
+    the card). Returns lightcurve-generation's K1 launches."""
+    import shutil
+
+    import yaml
+
+    from nmma_tpu_torch.cli import tools
+    from nmma_tpu_torch.injections import write_injection_file
+
+    eos_dir = os.path.join(tmp, "eos")
+    work = os.path.join(tmp, "tools")
+    os.makedirs(work)
+    rng = np.random.default_rng(19)
+    t_start = time.time()
+
+    def run(name, fn, *args, launches=(0, 0, 0), **kwargs):
+        reset_launches()
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        if kernel_launches() != launches:
+            raise RuntimeError(f"[tools] {name} launched K1-K3 "
+                               f"{kernel_launches()}, expected {launches}")
+        written = sum(len(files) for _, _, files in os.walk(work))
+        say("tools", command=name, seconds=f"{time.time() - t0:.3f}",
+            files_in_workdir=written)
+        return out
+
+    n = TOOLS_GENERATION_ROWS
+    write_injection_file(os.path.join(work, "rows.json"), {
+        "log10_mej_dyn": rng.uniform(-3.0, -1.0, n),
+        "log10_mej_wind": rng.uniform(-2.0, -0.5, n),
+        "KNphi": rng.uniform(15.0, 75.0, n),
+        "KNtheta": rng.uniform(0.0, 90.0, n),
+        "luminosity_distance": rng.uniform(20.0, 200.0, n),
+        "timeshift": np.zeros(n)})
+    paths = run("lightcurve-generation", tools.lightcurve_generation,
+                ["--model", MODEL, "--injection",
+                 os.path.join(work, "rows.json"), "--outdir",
+                 os.path.join(work, "lcs")], launches=(n, 0, 0))
+    if len(paths) != n:
+        raise RuntimeError(f"[tools] lightcurve-generation wrote {paths}")
+
+    with open(os.path.join(work, "bns.prior"), "w") as f:
+        f.write(JOINT_PRIOR_TEXT.replace(
+            "maximum=10.)", f"maximum={float(len(EOS_SLOPES))})"))
+    params = run("nmma-create-injection", tools.create_injection,
+                 ["--prior-file", os.path.join(work, "bns.prior"),
+                  "--n-injection", str(TOOLS_INJECTIONS),
+                  "--ejecta-conversion",
+                  "--eos-dir", eos_dir, "-f", os.path.join(work, "bns.json")])
+    if not np.all(np.isfinite(params["log10_mej_dyn"])):
+        raise RuntimeError("[tools] nmma-create-injection: ejecta not finite")
+
+    m = 2000
+    gw = {"chirp_mass": rng.normal(1.1977, 0.001, m),
+          "mass_ratio": rng.uniform(0.7, 1.0, m),
+          "luminosity_distance": rng.normal(40.0, 4.0, m),
+          "EOS": rng.uniform(0.0, len(EOS_SLOPES), m)}
+    em = {"log10_mej_dyn": rng.normal(-2.2, 0.2, m),
+          "log10_mej_wind": rng.normal(-1.6, 0.2, m),
+          "luminosity_distance": rng.normal(42.0, 5.0, m)}
+    for name, post in (("gw", gw), ("em", em)):
+        np.savetxt(os.path.join(work, f"{name}.csv"),
+                   np.column_stack(list(post.values())), delimiter=",",
+                   header=",".join(post), comments="")
+    gw_csv, em_csv = (os.path.join(work, f"{k}.csv") for k in ("gw", "em"))
+    result, _ = run(
+        "gwem-resampling", tools.gwem_resampling,
+        ["--GWsamples", gw_csv, "--EMsamples", em_csv, "--EOS-data", eos_dir,
+         "--nlive", str(TOOLS_RESAMPLING_NLIVE), "--outdir", work],
+        sampler_kwargs={"max_iter": RESAMPLING_ITERATIONS})
+    if not math.isfinite(result.logz):
+        raise RuntimeError(f"[tools] gwem-resampling logZ {result.logz}")
+    med, lo, hi = run("gwem-Hubble-estimate", tools.gwem_hubble_estimate,
+                      ["--posterior-files", em_csv, "--redshifts", "0.0098",
+                       "--outdir", work])
+    run("gwem-Hubble-estimate --gw-posterior-files",
+        tools.gwem_hubble_estimate,
+        ["--posterior-files", f"{em_csv},{em_csv}", "--gw-posterior-files",
+         f"{gw_csv},{gw_csv}", "--redshifts", "0.0098,0.0098",
+         "--N-reordering", "2", "--N-posterior-samples", "300",
+         "--outdir", work])
+    _, trend = run("combine-EOS", tools.combine_eos,
+                   ["--posterior-files", gw_csv, "--eos-data", eos_dir,
+                    "--outdir", work])
+    with open(os.path.join(work, "skyportal.csv"), "w") as f:
+        f.write("mjd,filter,mag,magerr,limiting_mag\n" + "".join(
+            f"{TRIGGER_MJD + 0.5 * i},ztf{'gri'[i % 3]},"
+            f"{19.0 + 0.1 * i},0.05,21.0\n" for i in range(12)))
+    run("convert-skyportal-lcs", tools.convert_skyportal,
+        ["--csv-file", os.path.join(work, "skyportal.csv"), "--outfile",
+         os.path.join(work, "skyportal.dat")])
+    modeldir = os.path.join(work, "possis")
+    os.makedirs(modeldir)
+    shutil.copy(os.path.join(tmp, "possis_spectra.txt"),
+                os.path.join(modeldir, "nph1e6_mej0.05.txt"))
+    lcs = run("nmma-make-lcs", tools.make_lcs,
+              ["--modeldir", modeldir, "--lcdir",
+               os.path.join(work, "possis_lcs"), "--dMpc", "40",
+               "--filters", ",".join(POSSIS_FILTERS)])
+    if not lcs:
+        raise RuntimeError("[tools] nmma-make-lcs wrote nothing")
+
+    config, _ = cli_config(work)
+    flags = {"model": "Bu2019lm_multi", "svd_path": ARTIFACT,
+             "prior": config["prior"], "injection": config["injection"],
+             "filters": CADENCE_FILTERS, "tmin": 0.5, "tmax": 11.0,
+             "nlive": 64, "n_delete": 16, "walks": 4, "dlogz": 50.0,
+             "check_point_delta_t": 1e6,
+             "outdir": os.path.join(work, "multi")}
+    with open(os.path.join(work, "runs.yaml"), "w") as f:
+        yaml.safe_dump({"multi_cli": flags}, f)
+    out = run("multi-config-analysis", tools.multi_config,
+              ["--config", os.path.join(work, "runs.yaml")])
+    if out != [("multi_cli", 0)] or not os.path.exists(
+            os.path.join(work, "multi", "multi_cli_result.npz")):
+        raise RuntimeError(f"[tools] multi-config-analysis gave {out}")
+
+    with open(os.path.join(work, "job.sh"), "w") as f:
+        f.write("python -m nmma_tpu_torch.cli.lightcurve_analysis --prior "
+                "PRIOR --outdir OUTDIR --injection-num INJNUM\n")
+    run("lightcurve-injection-slurm-setup", tools.injection_slurm_setup,
+        ["--prior-file", os.path.join(work, "bns.prior"), "--analysis-file",
+         os.path.join(work, "job.sh"), "--n-injection", "4", "--outdir",
+         os.path.join(work, "jobs")])
+    run("create-lightcurve-slurm", tools.create_lightcurve_slurm,
+        ["--injection", os.path.join(work, "rows.json"), "--analysis-file",
+         os.path.join(work, "job.sh"), "--n-per-job", "5", "--outdir",
+         os.path.join(work, "lc_jobs")])
+    say("tools", h0=f"{med:.2f}", h0_68=f"{lo:.2f},{hi:.2f}",
+        r14=f"{trend[-1][0]:.3f}", seconds=f"{time.time() - t_start:.2f}")
+    return n
+
+
+def native_phase(np, grid_dir):
+    """[native]: which loader reads the tables, then parse_many over the
+    [svd_train] grid's bulla files against np.loadtxt, bit for bit, with
+    the seconds of each."""
+    import glob
+
+    from nmma_tpu_torch import native
+
+    files = sorted(glob.glob(os.path.join(grid_dir, "*.dat")))
+    t0 = time.time()
+    available = native.native_available()
+    setup_s = time.time() - t0
+    t0 = time.time()
+    tables = native.parse_many(files)
+    native_s = time.time() - t0
+    t0 = time.time()
+    want = [np.loadtxt(f, ndmin=2) for f in files]
+    loadtxt_s = time.time() - t0
+    if len(files) != TRAIN_POINTS or not all(
+            np.array_equal(a, b) and a.dtype == b.dtype
+            for a, b in zip(tables, want)):
+        raise RuntimeError(f"[native] {len(files)} files; parse_many "
+                           "differs from np.loadtxt")
+    say("native", native_available=available,
+        loader=os.path.relpath(native.loader(), HERE) if available
+        else native.loader(), files=len(files),
+        rows_cols=f"{want[0].shape[0]}x{want[0].shape[1]}",
+        setup_s=f"{setup_s:.3f}", parse_many_s=f"{native_s:.4f}",
+        loadtxt_s=f"{loadtxt_s:.4f}")
+
+
+def serve_directory(root):
+    """A ThreadingHTTPServer on 127.0.0.1, port 0, serving ``root`` from a
+    thread: (base URL, stop)."""
+    import threading
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(
+        ("127.0.0.1", 0),
+        lambda *a, **kw: Quiet(*a, directory=root, **kw))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=5)
+    return f"http://127.0.0.1:{server.server_address[1]}", stop
+
+
+def registry_logl(np, torch, gen, name, direct, filters, tmp):
+    """EMAnalysis.batched_logl at B = BATCH through surrogate ``name`` and
+    through ``direct`` on the same photometry, prior and unit points: the
+    two must agree bit for bit, and each call launches K1 once. Returns
+    the finite share."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+
+    data_path = os.path.join(tmp, f"{name}.dat")
+    synthetic_photometry(np, torch, direct, filters, data_path, INJECTION,
+                         sample_times=(0.01, 14.0, 150), epochs=(0.5, 12.0))
+    prior_path = os.path.join(tmp, "registry.prior")
+    with open(prior_path, "w") as f:
+        f.write(PRIOR_TEXT)
+    logl, u = [], None
+    for model in (name, direct):
+        analysis = EMAnalysis(EMAnalysisConfig(
+            model=model, prior_file=prior_path, light_curve_data=data_path,
+            trigger_time=TRIGGER_MJD, data_tmax=12.5, filters=filters),
+            device=DEVICE)
+        if u is None:
+            u = analysis.priors.sample_units(gen, BATCH)
+        reset_launches()
+        logl.append(analysis.batched_logl(u))
+        torch.cuda.synchronize()
+        assert_launches("registry", 1)
+    if not torch.equal(logl[0], logl[1]):
+        raise RuntimeError(f"[registry] {name}'s logL differs from the .npz "
+                           "surrogate's by "
+                           f"{float((logl[0] - logl[1]).abs().max())}")
+    return float((logl[0] > -1e29).float().mean())
+
+
+def registry_phase(np, torch):
+    """[registry]: a reference-layout registry tree written from the
+    production surrogate (models.yaml, a joblib core, keras-layout h5
+    weights a filter) served on 127.0.0.1; download_model, the ingestion
+    onto the card, and batched_logl at B = BATCH (one K1 launch) equal bit
+    for bit to the surrogate loaded from its .npz (REGISTRY_FILTERS, the
+    names the registry keeps). Then get_model through a hook that copies
+    the .npz and load_registered_model, with the same check on every
+    filter. Without joblib or h5py the first half names the missing
+    package. Returns the K1 launches."""
+    import importlib.util
+    import shutil
+
+    from nmma_tpu_torch import registry
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(20)
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as tmp:
+        missing = [m for m in ("joblib", "h5py")
+                   if importlib.util.find_spec(m) is None]
+        if missing:
+            say("registry", reference_format="skipped",
+                missing=",".join(missing))
+        else:
+            with np.load(ARTIFACT) as z:
+                arrays = {k: z[k] for k in z.files}
+            root = os.path.join(tmp, "served")
+            t0 = time.time()
+            registry.write_reference_layout(root, REGISTRY_MODEL, arrays)
+            write_s = time.time() - t0
+            url, stop = serve_directory(root)
+            try:
+                t0 = time.time()
+                paths, _ = registry.download_model(
+                    REGISTRY_MODEL, models_home=os.path.join(tmp, "home"),
+                    base_url=url)
+                download_s = time.time() - t0
+                t0 = time.time()
+                svd = registry.load_reference_registry_model(
+                    REGISTRY_MODEL, models_home=os.path.join(tmp, "home"),
+                    base_url=url, device=DEVICE)
+                ingest_s = time.time() - t0
+            finally:
+                stop()
+            finite = registry_logl(np, torch, gen, REGISTRY_CORE, MODEL,
+                                   REGISTRY_FILTERS, tmp)
+            launches += 1
+            size = sum(os.path.getsize(p) for p in paths)
+            say("registry", reference_format="ok", files=len(paths),
+                megabytes=f"{size / 1e6:.2f}",
+                write_s=f"{write_s:.3f}", download_s=f"{download_s:.3f}",
+                ingest_s=f"{ingest_s:.3f}", batch=BATCH,
+                finite_share=f"{finite:.4f}", logl="bit for bit")
+
+        def hook(name, home):
+            shutil.copy(ARTIFACT, os.path.join(home, f"{name}.npz"))
+
+        registry.set_download_hook(hook)
+        try:
+            t0 = time.time()
+            svd = registry.load_registered_model(
+                "Bu2019lm_hooked", models_home=os.path.join(tmp, "hooked"),
+                device=DEVICE)
+            load_s = time.time() - t0
+        finally:
+            registry.set_download_hook(None)
+        finite = registry_logl(np, torch, gen, "Bu2019lm_hooked", MODEL,
+                               list(svd.filters), tmp)
+        launches += 1
+        say("registry", hook="ok", load_s=f"{load_s:.3f}", batch=BATCH,
+            filters=len(svd.filters), finite_share=f"{finite:.4f}",
+            logl="bit for bit")
+    return launches
 
 
 def main() -> int:
@@ -4562,7 +5063,15 @@ def main() -> int:
         k1_joint = joint_path(np, torch, tmp)
         gw_path(np, torch)
         post_path(np, torch, tmp)
+        t0 = time.time()
+        generation_launches = tools_phase(np, torch, tmp)
+        item19_s = time.time() - t0
     k1_training = training_path(np, torch)
+    t0 = time.time()
+    cadence_launches = cadences_phase(np, torch)
+    registry_launches = registry_phase(np, torch)
+    item19_s += time.time() - t0 + k1_training.pop("native_s")
+    say("item19_phases", seconds=f"{item19_s:.2f}")
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
@@ -4572,6 +5081,9 @@ def main() -> int:
         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "ms_sampler_batch": k1_ms_small, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         **k1_joint, **k1_training,
+        "launches_cadences_cli": cadence_launches,
+        "launches_lightcurve_generation": generation_launches,
+        "launches_registry": registry_launches,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -222,9 +222,9 @@ def load_macro_eos_set(path_or_files, mass_grid=_DEFAULT_MASS_GRID,
         files.sort(key=lambda f: _numeric_key(os.path.basename(f)))
     else:
         files = sorted(glob.glob(path_or_files))
+    from ..native import parse_many
     radii, masses, lambdas = [], [], []
-    for path in files:
-        arr = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    for arr in parse_many(files):
         radii.append(arr[:, 0])
         masses.append(arr[:, 1])
         lambdas.append(arr[:, 2] if arr.shape[1] > 2

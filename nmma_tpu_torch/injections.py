@@ -1,13 +1,12 @@
 """Injection files and forward synthesis of photometry.
 
-Port of the json, LIGO-LW xml, plain-cadence and injection-set parts of
-``nmma_tpu/injections.py`` (the reference's bilby-style injection files,
-``nmma/core/utils.py:84-96``,
-and ``create_light_curve_data``, ``nmma/em/lightcurve_generation.py
-:816-917``): the detector-frame model light curve at the injection, Gaussian
+Port of ``nmma_tpu/injections.py`` (the reference's bilby-style injection
+files, ``nmma/core/utils.py:84-96``, and ``create_light_curve_data``,
+``nmma/em/lightcurve_generation.py:816-1128``): the detector-frame model
+light curve at the injection, survey cadences (``strategies.py``), Gaussian
 noise from ``np.random.default_rng(seed)`` drawn in the JAX package's order
-(so a seed gives both packages the same noise), and detections below the
-limit with (limit, inf) pairs above it.
+(so a seed gives both packages the same noise and epochs), and detections
+below the limit with (limit, inf) pairs above it.
 """
 
 from __future__ import annotations
@@ -68,15 +67,19 @@ def create_light_curve_data(injection_parameters, model, filters,
                             trigger_time=None,
                             ztf_sampling=False, rubin_too_type=None,
                             ztf_uncertainties=False, ztf_too=None,
-                            device=None):
+                            device=None, ztf_limits=None):
     """Synthetic photometry ``{filter: {time, mag, mag_error}}`` from one
     injection: the model on ``device`` (the CUDA card unless the caller
-    passes one), noise and detection limits on the host."""
-    if ztf_sampling or ztf_uncertainties or ztf_too or rubin_too_type:
-        raise NotImplementedError(
-            "survey cadences (ztf_sampling, ztf_uncertainties, ztf_too, "
-            "rubin_too_type) need strategies.py, which nmma_tpu_torch does "
-            "not have yet (ROADMAP item 19)")
+    passes one), noise, cadences and detection limits on the host.
+
+    With ``ztf_sampling``, ``ztf_uncertainties`` or ``ztf_too`` the data
+    come from the ZTF observing model (``strategies.ZTFObservingModel``;
+    the parametric ZTF cadence when its npz is absent); with
+    ``rubin_too_type`` (and the parametric ZTF cadence) from the strategy
+    epochs; else at the model's times. Times are the model's f32 offsets
+    plus ``trigger_time`` in float64. A dict ``ztf_limits`` receives the
+    ZTF model's drawn limiting magnitudes per filter.
+    """
     from .models import DetectorLightCurveModel
 
     rng = np.random.default_rng(seed)
@@ -95,14 +98,73 @@ def create_light_curve_data(injection_parameters, model, filters,
 
     if trigger_time is None:
         trigger_time = injection_parameters.get("trigger_time", 0.0)
-    limits = _per_filter(detection_limit, filters, np.inf)
-    dmag = _per_filter(injection_error_budget, filters, 0.1)
+    # float64: at an MJD an f32 ulp is minutes, and the sum would move the
+    # last epoch off the model's grid
+    abs_times = obs_times.astype(np.float64) + trigger_time
 
+    if ztf_sampling or ztf_uncertainties or ztf_too:
+        from .strategies import ZTFObservingModel
+        try:
+            ztf_model = ZTFObservingModel()
+        except FileNotFoundError:
+            ztf_model = None
+        if ztf_model is not None:
+            dmag = _per_filter(injection_error_budget, filters, 0.1)
+            # noise over every model time of each filter, before the
+            # observing model draws (the JAX package's order)
+            dense = {}
+            for i, filt in enumerate(filters):
+                noisy = mags[i] + rng.normal(scale=dmag[filt],
+                                             size=mags.shape[1])
+                dense[filt] = {"time": abs_times, "mag": noisy,
+                               "mag_error": np.full(mags.shape[1],
+                                                    dmag[filt])}
+            data = ztf_model.apply(
+                dense, filters, rng, float(np.max(obs_times)),
+                trigger_time=trigger_time, uncertainties=ztf_uncertainties,
+                too=ztf_too, limits=ztf_limits)
+            if not keep_infinite_data:
+                data = {f: {k: np.asarray(v)[np.isfinite(d["mag"])]
+                            for k, v in d.items()}
+                        for f, d in data.items()}
+            return data
+
+    strategy = []
+    if rubin_too_type:
+        from .strategies import rubin_strategy
+        strategy.extend(rubin_strategy(rubin_too_type))
+    if ztf_sampling:
+        from .strategies import ztf_strategy
+        strategy.extend(ztf_strategy(rng))
+    if strategy:
+        from .strategies import apply_strategy
+        observed = apply_strategy(
+            {f: {"time": abs_times, "mag": mags[i]}
+             for i, f in enumerate(filters)},
+            strategy, trigger_time=trigger_time)
+        keep = {f: np.ones(len(sub["time"]), dtype=bool)
+                for f, sub in observed.items()}
+        return _noisy_data(observed, keep, rng, detection_limit,
+                           injection_error_budget, keep_infinite_data)
+
+    keep = obs_times >= 0.0
+    observed = {f: {"time": abs_times, "mag": mags[i]}
+                for i, f in enumerate(filters)}
+    return _noisy_data(observed, {f: keep for f in filters}, rng,
+                       detection_limit, injection_error_budget,
+                       keep_infinite_data)
+
+
+def _noisy_data(observed, keep, rng, detection_limit,
+                injection_error_budget, keep_infinite_data):
+    """Gaussian noise on the kept epochs of each filter, in order, then
+    (limit, inf) pairs at and beyond the detection limit."""
+    limits = _per_filter(detection_limit, observed, np.inf)
+    dmag = _per_filter(injection_error_budget, observed, 0.1)
     data = {}
-    for i, filt in enumerate(filters):
-        keep = obs_times >= 0.0
-        times = obs_times[keep] + trigger_time
-        true_mag = mags[i][keep]
+    for filt, sub in observed.items():
+        times = sub["time"][keep[filt]]
+        true_mag = sub["mag"][keep[filt]]
         noisy = true_mag + rng.normal(scale=dmag[filt], size=len(true_mag))
         det_lim = limits.get(filt, np.inf)
         detected = noisy < det_lim

@@ -170,9 +170,14 @@ class EMLikelihood:
 
         def hat(t):
             """Hat weight of grid node t at the queries, as the reference
-            builds it: clip(min((xq-x_{t-1})/dl_t, (x_{t+1}-xq)/dr_t))."""
+            builds it: clip(min((xq-x_{t-1})/dl_t, (x_{t+1}-xq)/dr_t)),
+            one-sided at the ends (rising side 1 at t = 0, falling side 1
+            at t = T-1), so a query on x[0] or x[T-1] reads y there as
+            ``np.interp`` does; the JAX package's padded widths give 0."""
             up = (xq_b - x_l.gather(1, t)) / dl.gather(1, t)
             dn = (x_r.gather(1, t) - xq_b) / dr.gather(1, t)
+            up = torch.where(t == 0, 1.0, up)
+            dn = torch.where(t == n_grid - 1, 1.0, dn)
             return torch.clamp(torch.minimum(up, dn), 0.0, 1.0)
 
         w_lo = hat(j).reshape(b, 1, n_f, n_obs)

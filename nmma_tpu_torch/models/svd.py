@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 
 import numpy as np
 import torch
@@ -195,3 +196,82 @@ def make_svd_source_model(name: str, svd: SVDModelData,
         citation="SVD surrogate (nmma-compatible)",
         filter_names=tuple(svd.filters),
     ))
+
+
+# ---------------------------------------------------------------------------
+# Ingestion of reference-format artifacts
+# ---------------------------------------------------------------------------
+def _read_keras_h5_dense_stack(path):
+    """(W1, b1, W2, b2) of a legacy keras Sequential .h5 file: the
+    reference's '_tf' models are Dense(P->H, relu) [+Dropout] ->
+    Dense(H->C) (nmma/em/training.py:336-397), read with h5py (no
+    tensorflow)."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        g = f["model_weights"]
+        dense_names = sorted(
+            (k for k in g.keys() if "dense" in k),
+            key=lambda k: int(k.split("_")[-1]) if k.split("_")[-1].isdigit()
+            else 0)
+        mats = []
+        for name in dense_names:
+            sub = g[name]
+            # descend to the weight datasets
+            while not any(k.endswith(":0") for k in sub.keys()):
+                sub = sub[list(sub.keys())[0]]
+            mats.append((np.asarray(sub["kernel:0"]),
+                         np.asarray(sub["bias:0"])))
+    if len(mats) != 2:
+        raise ValueError(f"expected 2 dense layers in {path}, got {len(mats)}")
+    (w1, b1), (w2, b2) = mats
+    return w1, b1, w2, b2
+
+
+def ingest_nmma_svd_model(model_dir, model_name, filters=None,
+                          filter_dir=None, device=None) -> SVDModelData:
+    """A reference svdmodel directory as the port's ``SVDModelData`` on
+    ``device`` (the CUDA card unless the caller passes one).
+
+    The reference layout: a ``{model_name}.joblib`` core (per filter VA,
+    mins, maxs, tt, n_coeff, param bounds and names;
+    nmma/em/training.py:291-299) and per-filter ``{filt}.h5`` /
+    ``{filt}.keras`` MLP weights, stacked into the ``[F, ...]`` tensors K1
+    reads. ``filter_dir`` is where the weights live when it is not
+    ``model_dir`` (the registry puts them under ``{home}/{model_name}/``,
+    core/gitlab.py:225-232). ``joblib`` and ``h5py`` are imported here
+    only.
+    """
+    device = resolve_device(device)
+    import joblib
+    core = joblib.load(os.path.join(model_dir, f"{model_name}.joblib"))
+    filter_dir = filter_dir or model_dir
+    filters = list(core.keys()) if filters is None else list(filters)
+
+    n_coeff = min(int(core[f]["n_coeff"]) for f in filters)
+    stacks = {k: [] for k in ("va", "mins", "maxs", "w1", "b1", "w2", "b2")}
+    for f in filters:
+        sub = core[f]
+        stacks["va"].append(np.asarray(sub["VA"])[:, :n_coeff])
+        stacks["mins"].append(np.asarray(sub["mins"]))
+        stacks["maxs"].append(np.asarray(sub["maxs"]))
+        for ext in (".h5", ".keras"):
+            path = os.path.join(filter_dir, f + ext)
+            if os.path.exists(path):
+                break
+        w1, b1, w2, b2 = _read_keras_h5_dense_stack(path)
+        stacks["w1"].append(w1)
+        stacks["b1"].append(b1)
+        stacks["w2"].append(w2[:, :n_coeff])
+        stacks["b2"].append(b2[:n_coeff])
+
+    first = core[filters[0]]
+    if not first.get("model_parameters"):
+        raise ValueError(f"{model_name}.joblib names no model_parameters")
+    return svd_from_numpy({
+        **{k: np.stack(v) for k, v in stacks.items()},
+        "tt": np.asarray(first["tt"]),
+        "param_mins": np.asarray(first["param_mins"]),
+        "param_maxs": np.asarray(first["param_maxs"]),
+        "filters": np.asarray(filters),
+        "parameter_names": np.asarray(first["model_parameters"]),
+    }, device)

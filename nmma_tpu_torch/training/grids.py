@@ -3,7 +3,8 @@
 Port of ``nmma_tpu/training/grids.py`` (the 'standard'/'hdf5' branches of
 the reference's ``read_photometry_files``, nmma/em/io.py:378-454, and its
 HDF5 ``Grid``, nmma/em/lightcurve_handling.py:486-531). Host code: tables
-are read with numpy, and ``h5py`` is imported only inside the HDF5 readers.
+are read by the native loader (``native.py``; numpy without it), and
+``h5py`` is imported only inside the HDF5 readers.
 The bulla reader is ``training.svd.read_bulla_grid``.
 """
 
@@ -34,7 +35,8 @@ HDF5_RENAMES = {
 
 def read_standard_grid_file(path):
     """10- or 15-column whitespace grid file -> {'t': ..., filt: ...}."""
-    arr = np.atleast_2d(np.loadtxt(path))
+    from ..native import parse_table
+    arr = parse_table(path)
     cols = STANDARD_COLUMNS[:arr.shape[1]]
     return {c: arr[:, i] for i, c in enumerate(cols)}
 

@@ -145,9 +145,10 @@ def read_bulla_grid(files, model="Bu2019lm_sparse", filters=None):
 
     Returns (entries, parameter names, filters); an entry is
     {"params": {name: value}, "t": [T], "mags": {filter: [T]}}. Tables are
-    read with ``np.loadtxt`` (reference read_photometry_files, 'bulla',
-    nmma/em/io.py:352-377).
+    read by the native loader, ``np.loadtxt`` without it (reference
+    read_photometry_files, 'bulla', nmma/em/io.py:352-377).
     """
+    from ..native import parse_many
     parse, parameter_names = GRID_PARSERS[model]
     files = sorted(files)
     if not files:
@@ -155,8 +156,7 @@ def read_bulla_grid(files, model="Bu2019lm_sparse", filters=None):
             f"no grid files to read for model {model!r} — the data path "
             f"matched nothing")
     entries = []
-    for fn in files:
-        arr = np.atleast_2d(np.loadtxt(fn))
+    for fn, arr in zip(files, parse_many(files)):
         with open(fn) as f:
             header = f.readline().strip().lstrip("#").split()
         cols = header[1:]                  # first column is t[days]

@@ -8,7 +8,10 @@ each assembles its analysis and stops; then
 
 * the injection photometry each writes (``--injection-outfile``) agrees
   within 1e-4 mag (the K1 tolerance; both draw the noise from
-  ``np.random.default_rng(seed)`` in the same order), at the same times;
+  ``np.random.default_rng(seed)`` in the same order), at the same times:
+  the port sums the model's offsets and the trigger time in float64, and
+  the JAX package, which sums them in f32 (ROADMAP fault 3i), is handed
+  its offsets summed in float64;
 * ``batched_logl`` at 64 seeded unit points agrees within rtol 1e-4 and
   atol 1e-2 with identical -1e30 sentinels (the bounds of
   tests/test_torch_em_slice.py);
@@ -19,9 +22,10 @@ file and its checkpoint, and ``--skip-sampling`` regenerates its logZ from
 the checkpoint bit for bit. ``--sampler mcmc`` writes the JAX package's
 result keys in both packages, and ``EMAnalysis.run_mcmc`` agrees with a
 nested run on the posterior medians. ``--sampler neuralnet`` runs in the
-port and writes the JAX package's result keys. Each option whose module
-the port does not have yet raises NotImplementedError naming its ROADMAP
-item; the
+port and writes the JAX package's result keys. ``--ztf-sampling`` and
+``--rubin-ToO-type platinum`` give both packages the same epochs and logL.
+Each option whose module the port does not have yet raises
+NotImplementedError naming its ROADMAP item; the
 sky-map options (--fits-file, --detection-limit-fits-file) and
 --fiesta-surrogates-dir give the JAX package's priors, detection limit and
 logL.
@@ -93,7 +97,31 @@ def _skip_sampling_run(main, config, outdir, **kwargs):
                 **kwargs)
 
 
-def test_cli_matches_jax(config):
+def f64_injection_times(original):
+    """The JAX package's create_light_curve_data with its offsets summed
+    with the trigger time in float64 (fault 3i: it sums them in f32), so
+    both CLIs analyse the same data."""
+    def create(injection_parameters, *args, trigger_time=None, **kwargs):
+        if trigger_time is None:
+            trigger_time = injection_parameters.get("trigger_time", 0.0)
+        data = original(injection_parameters, *args, trigger_time=0.0,
+                        **kwargs)
+        for sub in data.values():
+            sub["time"] = np.asarray(sub["time"], np.float64) + trigger_time
+        return data
+    return create
+
+
+@pytest.fixture()
+def jax_f64_times(monkeypatch):
+    """The JAX package's injections with float64 times for this test."""
+    import nmma_tpu.injections as j_injections
+    monkeypatch.setattr(j_injections, "create_light_curve_data",
+                        f64_injection_times(
+                            j_injections.create_light_curve_data))
+
+
+def test_cli_matches_jax(config, jax_f64_times):
     root, path = config
     j_ana = _skip_sampling_run(j_cli.main, path, root / "jax")
     t_ana = _skip_sampling_run(t_cli.main, path, root / "port",
@@ -107,6 +135,7 @@ def test_cli_matches_jax(config):
     got = json.loads((root / "port" / "inj_data.json").read_text())
     assert sorted(got) == sorted(want) == sorted(FILTERS)
     for f in FILTERS:
+        # the JAX package's offsets summed with the trigger in float64
         np.testing.assert_allclose(got[f]["time"], want[f]["time"],
                                    rtol=1e-9)
         np.testing.assert_allclose(got[f]["mag"], want[f]["mag"], rtol=0,
@@ -147,10 +176,29 @@ def test_cli_full_run_and_skip_sampling(config):
         ana.result.logz
 
 
+def test_logl_at_the_injection_is_finite(config):
+    """Faults 3i and 3j: the configuration's injection spans the whole model
+    grid, so its first and last epochs sit on the grid's end nodes; with
+    the times summed in float64 and one-sided end hats, the logL at the
+    injection (the systematics at their priors' midpoints) is finite and
+    above the logL of 64 seeded prior points."""
+    root, path = config
+    ana = t_cli.main([path, "--skip-sampling", "--outdir",
+                      str(root / "at_injection")], device="cpu")
+    names = ana.priors.sampled_names
+    u = [[(INJECTION[n] - ana.priors[n].minimum)
+          / (ana.priors[n].maximum - ana.priors[n].minimum)
+          if n in INJECTION else 0.5 for n in names]]
+    at_injection = float(ana.batched_logl(torch.tensor(u))[0])
+    seeded = ana.batched_logl(torch.from_numpy(np.random.default_rng(
+        66).uniform(size=(64, len(names))).astype(np.float32)))
+    assert at_injection > -1e29
+    assert at_injection > float(seeded.max())
+
+
 UNPORTED = {
     "bestfit": (["--bestfit"], 19),
     "plot": (["--plot"], 19),
-    "ztf": (["--ztf-sampling"], 19),
 }
 
 
@@ -161,6 +209,56 @@ def test_unported_options_name_their_item(config, case):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         t_cli.main([path, "--outdir", str(root / case), "--skip-sampling",
                     *flags], device="cpu")
+
+
+CADENCE_FLAGS = {
+    "ztf": ["--ztf-sampling"],
+    "rubin": ["--rubin-ToO-type", "platinum"],
+}
+
+
+@pytest.mark.parametrize("case", list(CADENCE_FLAGS))
+def test_cadence_options_match_jax(config, case):
+    """--ztf-sampling (the ZTF observing model's epochs) and
+    --rubin-ToO-type platinum (its epochs in ps1::z and ps1::y, the
+    surrogate's only Rubin filters) through both CLIs on an injection at
+    trigger 0 with --skip-sampling: the same filters and epochs, magnitudes
+    within 1e-4 mag, the same non-detections, and logL at 64 seeded unit
+    points within rtol 1e-4 / atol 1e-2 with identical sentinels."""
+    root, path = config
+    t_injections.write_injection_file(
+        root / f"{case}_inj.json",
+        {k: [v] for k, v in {**INJECTION, "trigger_time": 0.0}.items()})
+    flags = [*CADENCE_FLAGS[case], "--injection",
+             str(root / f"{case}_inj.json")]
+    runs = {}
+    for name, main, kwargs in (("jax", j_cli.main, {}),
+                               ("port", t_cli.main, {"device": "cpu"})):
+        outdir = root / f"{case}_{name}"
+        runs[name] = main([path, "--skip-sampling", "--outdir", str(outdir),
+                           "--injection-outfile",
+                           str(outdir / "inj_data.json"), *flags], **kwargs)
+    want = json.loads((root / f"{case}_jax" / "inj_data.json").read_text())
+    got = json.loads((root / f"{case}_port" / "inj_data.json").read_text())
+    assert sorted(got) == sorted(want)
+    assert set(got) == ({"ztfg", "ztfr", "ztfi"} if case == "ztf"
+                        else {"ps1::z", "ps1::y"})
+    for f in want:
+        np.testing.assert_array_equal(got[f]["time"], want[f]["time"])
+        np.testing.assert_allclose(got[f]["mag"], want[f]["mag"], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(got[f]["mag_error"],
+                                      want[f]["mag_error"])
+    t_ana, j_ana = runs["port"], runs["jax"]
+    assert t_ana.priors.sampled_names == j_ana.priors.sampled_names
+    u = np.random.default_rng(65).uniform(
+        size=(64, t_ana.priors.ndim)).astype(np.float32)
+    want = np.asarray(j_ana.batched_logl(jnp.asarray(u)))
+    got = t_ana.batched_logl(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got > -1e29, want > -1e29)
+    ok = want > -1e29
+    assert ok.sum() >= 8
+    np.testing.assert_allclose(got[ok], want[ok], rtol=RTOL, atol=ATOL)
 
 
 NN_PRIOR = """\
@@ -243,7 +341,7 @@ def sky_map_flags(root, case):
 
 
 @pytest.mark.parametrize("case", ["fits", "limit_fits", "fiesta_dir"])
-def test_sky_map_and_fiesta_options_match_jax(config, case):
+def test_sky_map_and_fiesta_options_match_jax(config, case, jax_f64_times):
     """--fits-file (the sky map's inclination prior at --dL, --ra, --dec),
     --detection-limit-fits-file (the m4opt limit at --ra, --dec) and
     --fiesta-surrogates-dir beside --svd-path, in both packages with

@@ -67,20 +67,22 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.mlmodel.embedding", "nmma_tpu_torch.mlmodel.inference",
        "nmma_tpu_torch.mlmodel.vicreg", "nmma_tpu_torch.mlmodel.pretrained",
        "nmma_tpu_torch.mlmodel.convert", "nmma_tpu_torch.eos.emulator",
-       "nmma_tpu_torch.eos.lec"}
+       "nmma_tpu_torch.eos.lec", "nmma_tpu_torch.strategies",
+       "nmma_tpu_torch.native", "nmma_tpu_torch.cluster",
+       "nmma_tpu_torch.registry"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
-from nmma_tpu_torch import eos
+from nmma_tpu_torch import eos, injections, registry
 from nmma_tpu_torch.cli import joint_main, lightcurve_analysis, tools
 from nmma_tpu_torch.eos import emulator, lec
 from nmma_tpu_torch import mlmodel, training
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
-from nmma_tpu_torch.models import fiesta
+from nmma_tpu_torch.models import fiesta, svd
 from nmma_tpu_torch.post_processing import (GWEMResampler,
                                             MaximumMassResampler,
                                             marginalisation)
@@ -140,6 +142,25 @@ ENTRY_POINTS = {
     "eos.emulator.train_tov_emulator": lambda: emulator.train_tov_emulator(
         None),
     "eos.lec.LECEmulatorSet.load": lambda: lec.LECEmulatorSet.from_numpy(),
+    "cli.tools.lightcurve_generation": lambda: tools.lightcurve_generation(
+        ["--model", "never-named", "--injection", "never-read"]),
+    "cli.tools.create_injection": lambda: tools.create_injection(
+        ["--prior-file", "never-read.prior"]),
+    "cli.tools.gwem_resampling": lambda: tools.gwem_resampling(
+        ["--GWsamples", "never-read", "--EMsamples", "never-read",
+         "--EOS-data", "never-read"]),
+    "cli.tools.injection_slurm_setup": lambda: tools.injection_slurm_setup(
+        ["--prior-file", "never-read.prior", "--analysis-file",
+         "never-read.sh"]),
+    "injections.create_light_curve_data": lambda:
+        injections.create_light_curve_data({}, "never-named", ["ztfg"],
+                                            ztf_sampling=True),
+    "registry.load_registered_model": lambda: registry.load_registered_model(
+        "never-named"),
+    "registry.load_reference_registry_model":
+        lambda: registry.load_reference_registry_model("never-named"),
+    "models.svd.ingest_nmma_svd_model": lambda: svd.ingest_nmma_svd_model(
+        "never-read", "never-named"),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():
