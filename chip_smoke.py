@@ -22,7 +22,9 @@ fiesta surrogates, FITS sky maps, POSSIS spectra and the post-processing
 (no kernel of their own; Bu2019lm through K1 where they use it); then
 K1's general path, surrogate training, likelihood-free inference and the
 EOS emulators (K1 only); then survey cadences, the command-line tools, the
-native table loader and the model registry (K1 only):
+native table loader and the model registry (K1 only); then the analysis
+service and the SkyPortal bridge (K2, K3), with the best-fit reports and
+light-curve bands on the runs that make them (K1, K2, K3):
 
   1. device   the card's name, and its name and power limit from nvidia-smi;
   2. build    nvcc build of every kernel, all started together, in seconds,
@@ -95,9 +97,10 @@ native table loader and the model registry (K1 only):
               yaml systematics with time nodes on one filter group, G23-MW
               extinction, a checkpoint after every chunk; nested sampling
               (nlive=512, walks=8, dlogz=0.5) to convergence. logZ,
-              iterations, calls and seconds; K1 launches 2 + iterations x
+              iterations, calls and seconds; K1 launches 3 + iterations x
               walks (the injection's light curve, the initial live set, one
-              per walk step), no K2 or K3 launch; every result file and the
+              per walk step, the best-fit report of --bestfit, on by
+              default), no K2 or K3 launch; every result file and the
               checkpoint; main([config, "--skip-sampling"]) must regenerate
               the run's logZ bit for bit; the logL at the injection (its
               first and last epochs on the model grid's end nodes) finite.
@@ -133,7 +136,7 @@ native table loader and the model registry (K1 only):
               (within 5 combined errors) and JS per parameter against its
               two reference posteriors in artifacts/, each below 0.01.
  18. mcmc     the [cli] configuration with --sampler mcmc (MCMC_WALKERS,
-              MCMC_SWEEPS, MCMC_TEMPS): K1 launches 2 + 2 x sweeps, max
+              MCMC_SWEEPS, MCMC_TEMPS): K1 launches 3 + 2 x sweeps, max
               R-hat <= 1.1, JS per parameter against the [cli] run's nested
               posterior below 0.05, the result files.
  19. em_models
@@ -258,7 +261,8 @@ native table loader and the model registry (K1 only):
               lightcurve-marginalisation on 2,000 seeded GW posterior
               samples, the EOS tables and Bu2019lm (one K1 launch):
               seconds, and the percentile bands within 1e-4 mag of the
-              port's CPU run on the same draws.
+              port's CPU run on the same draws; --plot where matplotlib is
+              present (the card's machine has none: printed as not run).
  37. resampling
               GWEMResampler on the EOS tables and MaximumMassResampler on
               their baryonic tables (host odeint, 10 EOS x 19 masses), each
@@ -283,15 +287,17 @@ native table loader and the model registry (K1 only):
               CPU from the same weights; svdmodel-benchmark (one K1
               launch); K1 on the trained surrogate against its plain
               version; the [cli] configuration on it, capped at 40
-              iterations (K1 launches 2 + iterations x walks); a second
+              iterations (K1 launches 3 + iterations x walks); a second
               training, C = 8 on 3 parameters (Bu2019nsbh's filenames,
               KNphi at 45), whose surrogate takes K1's general path in one
               batched_logl at B = 8192 against the plain K1.
  40. gp_train create-svdmodel --interpolation-type api_gp on the grid (one
               1,024^2 Cholesky, 90 right-hand sides); the sklearn_gp
               backend on its first 256 points for up to 400 steps; seconds,
-              peak memory, first and last NLL, the step it stopped at
-              (fault 3h), NaN count 0; magnitudes at 64 held-out points
+              peak memory, first and last NLL, all 400 steps finite
+              (fault 3h: the noise bound keeps the f32 Cholesky able to
+              factor) and the step the bound first bound, NaN count 0;
+              magnitudes at 64 held-out points
               card against CPU.
  41. lfi      lightcurve-analysis --sampler neuralnet on the [cli]
               configuration (3,000 simulations, 400 epochs, 20,000 draws),
@@ -320,7 +326,7 @@ native table loader and the model registry (K1 only):
               uncertainty interval's edge (counted); epochs and detections
               per filter; then the [cli] configuration with --ztf-sampling
               --ztf-uncertainties on ztfg, ztfr, ztfi, capped at 40
-              iterations: K1 launches 2 + iterations x walks, no K2/K3.
+              iterations: K1 launches 3 + iterations x walks, no K2/K3.
  44. tools    each entry point the twelfth slice added to cli/tools.py once,
               on the card where it runs a model or a sampler:
               lightcurve-generation on 16 injections (16 K1 launches),
@@ -330,7 +336,9 @@ native table loader and the model registry (K1 only):
               combine-EOS, convert-skyportal-lcs, nmma-make-lcs on the
               [possis] spectrum, multi-config-analysis (one subprocess of
               the port's CLI on the card, rc 0), the two slurm tools;
-              seconds and files written.
+              plot-svdmodel-benchmarks and nmma-plot-multi-corner where
+              matplotlib is present (else printed as not run); seconds
+              and files written.
  45. native   the native loader's library (native/, else built into
               _build/, else np.loadtxt), then parse_many over the 1,024
               bulla files of phase 39 against np.loadtxt, bit for bit, and
@@ -342,6 +350,38 @@ native table loader and the model registry (K1 only):
               naming the package, without joblib or h5py); then get_model
               through a hook copying the .npz and load_registered_model,
               with the same check.
+
+ 47. bestfit  (inside phase 13) the [cli] run's {label}_bestfit.json: its
+              log evidence and best-fit index the run's; then
+              compute_chisquare_dict at its best-fit point on the card,
+              counted (one K1 launch exactly); that table and the report's
+              each within 1e-3 + 1e-3 chi^2/dof of the port's compute on
+              the CPU at the same point on the same data.
+ 48. lc_bands (inside phases 13, 17 and 50) plotting.lightcurve_bands on
+              the [cli] run (Bu2019lm), config 3's converged run (TrPi2018)
+              and the SkyPortal bridge's run (Me2017, nlive 128): the best
+              fit and 60 posterior draws (each run holds more equal-weight
+              samples; B = 61 is required) in one model call, one launch of
+              K1, K3 or K2 exactly, against the same call with the plain
+              kernel on the card (1e-4 mag, 1e-3 below mag 45, 1e-3), inf
+              and NaN in the same places; the figure drawn only where
+              matplotlib is present ("matplotlib=absent" on the card's
+              machine).
+ 49. service  (phases 49 and 50 run last) nmma_tpu_torch.api's
+              AnalysisService on the card on an ephemeral port: a Me2017
+              request (tests/test_services.py's payload) with a callback to
+              a loopback server, a TrPi2018 request at full resolution, both
+              at nlive 64, and a model off the whitelist (400): wall s and
+              K1-K3 launches of each (K2 or K3 only, > 0), the callback
+              exactly once.
+ 50. skyportal
+              run_from_skyportal_inputs on a Me2017 SkyPortal payload (a
+              photometry csv from 0.5 d after the event, a redshift csv,
+              fix_z, nlive 128) through the port's CLI on the card, through
+              the invoke hook (which keeps the run's analysis for
+              [lc_bands], and takes out --plot where matplotlib is absent):
+              status success, a logZ off the sentinel, the posterior,
+              result and best-fit files, K2 launches only.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1448,7 +1488,8 @@ def cli_path(np, torch):
     """Phase 13: the lightcurve-analysis CLI in-process on the production
     surrogate through K1, with injection, Ebv shaping, yaml systematics,
     G23-MW extinction and checkpoints; then --skip-sampling. Returns the
-    run's K1 launches and its posterior."""
+    run's K1 launches, its posterior, and [lc_bands]'s and [bestfit]'s K1
+    launches; then [bestfit] and [lc_bands] on the run."""
     from nmma_tpu_torch.cli import lightcurve_analysis
     from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
 
@@ -1465,8 +1506,8 @@ def cli_path(np, torch):
         result = analysis.result
         walks = analysis.config.sampler.walks
         # the injection's light curve, the initial live set, one batch per
-        # walk step
-        expected = 1 + 1 + result.niter * walks
+        # walk step, the best-fit report
+        expected = 1 + 1 + result.niter * walks + BESTFIT_LAUNCHES
         if not math.isfinite(result.logz) or \
                 analysis.device.type != torch.device(DEVICE).type:
             raise RuntimeError(f"CLI run on {analysis.device}: logZ "
@@ -1486,9 +1527,13 @@ def cli_path(np, torch):
         label = os.path.join(config["outdir"], config["label"])
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_checkpoint_resume.npz",
-                       "_config_complete.ini"):
+                       "_config_complete.ini", "_bestfit.json"):
             if not os.path.exists(label + suffix):
                 raise RuntimeError(f"the CLI wrote no {suffix}")
+        bands_launches = lc_bands(
+            np, torch, "Bu2019lm", analysis, result, svd_kernel,
+            "svd_surrogate_mags", svd_kernel.svd_surrogate_mags_plain,
+            (1, 0, 0), tmp)
         os.remove(label + "_result.npz")
         again = lightcurve_analysis.main([config_path, "--skip-sampling"])
         regenerated = float(np.load(label + "_result.npz")["logz"])
@@ -1505,11 +1550,12 @@ def cli_path(np, torch):
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
             ndim=analysis.priors.ndim, k1_launches=launches[0],
-            k1_expected=f"2+{result.niter}x{walks}", k2_launches=launches[1],
+            k1_expected=f"3+{result.niter}x{walks}", k2_launches=launches[1],
             k3_launches=launches[2],
             skip_sampling_logz=repr(again.result.logz))
         posterior = analysis.posterior_samples()
-    return launches[0], posterior
+        bestfit_launches = bestfit_check(np, torch, analysis, label)
+    return launches[0], posterior, bands_launches, bestfit_launches
 
 
 def cli_injection_logl(torch, analysis):
@@ -1904,7 +1950,8 @@ def grb_ramp_path(np, torch, gen):
 def posterior_config3(np, torch):
     """Phase 17: BASELINE config 3 to convergence at the JAX package's
     production settings (scripts/torch_parity_config3.py), its posterior
-    against the JAX package's two, JS < 0.01 per parameter, and logZ."""
+    against the JAX package's two, JS < 0.01 per parameter, and logZ; then
+    [lc_bands] on the run. Returns [lc_bands]'s K3 launches."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch_parity_config3 as parity
 
@@ -1917,6 +1964,9 @@ def posterior_config3(np, torch):
         result, post, seconds = parity.run(analysis)
         launches = (grb_kernel.LAUNCHES, svd_kernel.LAUNCHES,
                     me2017_kernel.LAUNCHES)
+        bands_launches = lc_bands(
+            np, torch, "TrPi2018", analysis, result, grb_kernel, "eats_flux",
+            grb_kernel.eats_flux_plain, (0, 0, 1), tmp, faint=FAINT_MAG)
     walks = analysis.config.sampler.walks
     expected = 1 + result.niter * walks
     if launches != (expected, 0, 0):
@@ -1940,6 +1990,7 @@ def posterior_config3(np, torch):
         raise RuntimeError(f"config 3's posterior fails its check: JS max "
                            f"{summary['js_max']}, dlogZ {summary['dlogz']} "
                            f"(limit {summary['dlogz_limit']})")
+    return bands_launches
 
 
 def mcmc_path(np, torch, nested):
@@ -1964,14 +2015,16 @@ def mcmc_path(np, torch, nested):
         launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
                     grb_kernel.LAUNCHES)
         res = analysis.mcmc_result
-        # the injection's light curve, the initial walkers, two half-sweeps
-        expected = 1 + 1 + 2 * MCMC_SWEEPS
+        # the injection's light curve, the initial walkers, two half-sweeps,
+        # the best-fit report
+        expected = 1 + 1 + 2 * MCMC_SWEEPS + BESTFIT_LAUNCHES
         if launches != (expected, 0, 0):
             raise RuntimeError(f"the MCMC launched K1, K2, K3 {launches} "
                                f"times; expected ({expected}, 0, 0)")
         label = os.path.join(config["outdir"], config["label"])
         written = [label + s for s in ("_mcmc_result.npz",
-                                       "_mcmc_posterior_samples.csv")]
+                                       "_mcmc_posterior_samples.csv",
+                                       "_bestfit.json")]
         if not all(os.path.exists(p) for p in written):
             raise RuntimeError("the MCMC wrote no result files")
         post = analysis.posterior_samples(result=res)
@@ -1981,7 +2034,7 @@ def mcmc_path(np, torch, nested):
     say("mcmc", walkers=MCMC_WALKERS, sweeps=MCMC_SWEEPS, temps=MCMC_TEMPS,
         seconds=f"{seconds:.2f}", acceptance=f"{res.acceptance:.4f}",
         max_rhat=f"{max_rhat:.4f}", likelihood_calls=res.n_call,
-        k1_launches=launches[0], k1_expected=f"2+2x{MCMC_SWEEPS}",
+        k1_launches=launches[0], k1_expected=f"3+2x{MCMC_SWEEPS}",
         samples=res.samples_u.shape[0],
         written=",".join(os.path.basename(p) for p in written))
     say("mcmc", **{f"rhat_{k}": f"{v:.4f}" for k, v in zip(names, res.rhat)})
@@ -3690,7 +3743,14 @@ def marginalisation_phase(np, torch, eos_dir, tmp):
     dmag = float(np.abs(got[ok] - want[ok]).max())
     if dmag > FIESTA_MAG_TOL:
         raise RuntimeError(f"[marginalisation] bands {dmag} mag off the CPU")
+    if matplotlib_present():
+        marginalisation.main(args + ["--model", MODEL, "--plot", "--outdir",
+                                     os.path.join(tmp, "marg_plot")])
+        plot = "marginalised_lc.pdf"
+    else:
+        plot = "not run: matplotlib absent"
     say("marginalisation", samples=n, bands="x".join(map(str, got.shape)),
+        plot=plot,
         seconds=f"{seconds:.3f}", cpu_seconds=f"{cpu_s:.3f}",
         k1_launches=launches[0], finite_share=f"{ok.mean():.4f}",
         max_abs_dband_vs_cpu=f"{dmag:.3e}",
@@ -3987,7 +4047,8 @@ def trained_cli(np, torch, svd_path, tmp):
              "Bu2019lm_trained", "--label", "trained"])
     torch.cuda.synchronize()
     result = analysis.result
-    expected = 2 + result.niter * analysis.config.sampler.walks
+    expected = 2 + result.niter * analysis.config.sampler.walks \
+        + BESTFIT_LAUNCHES
     assert_launches("svd_train", expected)
     if not math.isfinite(result.logz) or result.niter > TRAIN_CLI_CAP:
         raise RuntimeError(f"the trained surrogate's run: logZ "
@@ -4162,9 +4223,10 @@ def svd_train(np, torch, gen, tmp):
 def gp_train(np, torch, gen, grid_dir, tmp):
     """[gp_train]: --interpolation-type api_gp on the 1,024-point grid
     (one 1,024^2 Cholesky with 90 right-hand sides), then the sklearn_gp
-    backend on its first 256 points for up to 400 adam steps (a [90, 256,
-    256] Cholesky and its backward a step; the fit stops at the first NaN
-    NLL, fault 3h, and the step is printed); each surrogate's magnitudes at
+    backend on its first 256 points for 400 adam steps (a [90, 256, 256]
+    Cholesky and its backward a step; every step's NLL must be finite,
+    fault 3h, and the step the noise bound first bound is printed); each
+    surrogate's magnitudes at
     64 held-out points, card against CPU."""
     from nmma_tpu_torch.cli import tools
     from nmma_tpu_torch.training import (load_gp_surrogate, read_bulla_grid,
@@ -4201,10 +4263,11 @@ def gp_train(np, torch, gen, grid_dir, tmp):
     assert_launches("gp_train", 0)
     nll = skl.nll_history
     skl_nan = int(np.isnan(nll).sum()) + int(torch.isnan(skl.alpha_vecs).sum())
-    if api_nan or skl_nan or not nll[-1] < nll[0]:
+    if api_nan or skl_nan or not nll[-1] < nll[0] \
+            or skl.stopped_at is not None or len(nll) != GP_STEPS:
         raise RuntimeError(f"GP fits: {api_nan} NaN alphas (api_gp), "
                            f"{skl_nan} NaN (sklearn_gp), NLL {nll[0]} -> "
-                           f"{nll[-1]}")
+                           f"{nll[-1]}, stopped at {skl.stopped_at}")
 
     rng = np.random.default_rng(20)
     lo, hi = meta["param_mins"], meta["param_maxs"]
@@ -4237,6 +4300,7 @@ def gp_train(np, torch, gen, grid_dir, tmp):
         nll_first=f"{nll[0]:.4f}", nll_last=f"{nll[-1]:.4f}",
         sklearn_gp_steps_run=len(nll),
         sklearn_gp_stopped_at=skl.stopped_at,
+        sklearn_gp_bound_from=skl.bound_from,
         sklearn_gp_nan=skl_nan, held_out=GP_HELD_OUT,
         api_gp_card_vs_cpu_mag=f"{errs['api_gp']:.3e}",
         sklearn_gp_card_vs_cpu_mag=f"{errs['sklearn_gp']:.3e}",
@@ -4547,7 +4611,8 @@ def cadences_phase(np, torch):
         torch.cuda.synchronize()
         seconds = time.time() - t0
         result = analysis.result
-        launches = 2 + result.niter * analysis.config.sampler.walks
+        launches = 2 + result.niter * analysis.config.sampler.walks \
+            + BESTFIT_LAUNCHES
         assert_launches("cadences", launches)
         if not math.isfinite(result.logz) or \
                 result.niter > CADENCE_CLI_CAP:
@@ -4556,7 +4621,7 @@ def cadences_phase(np, torch):
         data = analysis.data_dict
         say("cadences", case="cli", iterations=result.niter,
             logz=f"{result.logz:.4f}", seconds=f"{seconds:.2f}",
-            k1_launches=launches, k1_expected=f"2+{result.niter}x"
+            k1_launches=launches, k1_expected=f"3+{result.niter}x"
             f"{analysis.config.sampler.walks}",
             epochs=",".join(f"{f}:{len(data[f]['time'])}" for f in
                             sorted(data)))
@@ -4699,6 +4764,30 @@ def tools_phase(np, torch, tmp):
         ["--injection", os.path.join(work, "rows.json"), "--analysis-file",
          os.path.join(work, "job.sh"), "--n-per-job", "5", "--outdir",
          os.path.join(work, "lc_jobs")])
+    # the two entry points that draw (this slice): host matplotlib only
+    if matplotlib_present():
+        with open(os.path.join(work, "Bu2019lm_benchmark.json"), "w") as f:
+            json.dump({f"ztf{b}": sorted(rng.uniform(0.01, 5.0, 5).tolist())
+                       for b in "gri"}, f)
+        outs = [run("plot-svdmodel-benchmarks",
+                    tools.plot_svdmodel_benchmarks,
+                    ["--benchmark-file",
+                     os.path.join(work, "Bu2019lm_benchmark.json"),
+                     "--outdir", os.path.join(work, "bench_plot")])]
+        np.savetxt(os.path.join(work, "posterior.csv"),
+                   rng.normal(size=(400, 2)) + [-2.0, -1.2], delimiter=",",
+                   header="log10_mej_dyn,log10_mej_wind", comments="")
+        outs.append(run("nmma-plot-multi-corner",
+                        tools.COMMANDS["nmma-plot-multi-corner"],
+                        [os.path.join(work, "multi", "multi_cli_result.npz"),
+                         os.path.join(work, "posterior.csv"), "--parameters",
+                         "log10_mej_dyn,log10_mej_wind", "--outfile",
+                         os.path.join(work, "multi_corner.png")]))
+        if not all(os.path.getsize(o) > 0 for o in outs):
+            raise RuntimeError(f"[tools] empty figures {outs}")
+    else:
+        for name in ("plot-svdmodel-benchmarks", "nmma-plot-multi-corner"):
+            say("tools", command=name, result="not run: matplotlib absent")
     say("tools", h0=f"{med:.2f}", h0_68=f"{lo:.2f},{hi:.2f}",
         r14=f"{trend[-1][0]:.3f}", seconds=f"{time.time() - t_start:.2f}")
     return n
@@ -4864,6 +4953,384 @@ def registry_phase(np, torch):
             filters=len(svd.filters), finite_share=f"{finite:.4f}",
             logl="bit for bit")
     return launches
+
+
+# the thirteenth slice: best-fit reports, light-curve bands, the analysis
+# service and the SkyPortal bridge. The best-fit report is one model call at
+# the best-fit point (plotting.compute_chisquare_dict): one K1 launch on
+# every lightcurve-analysis run that samples, now that --bestfit is on by
+# default as in the JAX package
+BESTFIT_LAUNCHES = 1
+# the report's chi^2/dof on the card against the port on the CPU at the
+# same best-fit point, on the same data: 1e-3 + 1e-3 chi^2/dof
+BESTFIT_ATOL, BESTFIT_RTOL = 1e-3, 1e-3
+# lightcurve_bands on the card against the same call with the plain kernel
+# on the card: K1's 1e-4 mag; Me2017 1e-3 mag (K2's ltot within 1e-4
+# relative and r_photo bit for bit, through T_eff and the Planck factor,
+# tests/test_torch_em_slice.py); TrPi2018 [grb_ramp]'s 1e-3 mag below
+# FAINT_MAG
+LC_BANDS_TOL = {"Bu2019lm": K1_TOL, "Me2017": 1e-3, "TrPi2018": RAMP_MAG_TOL}
+LC_BANDS_DRAWS = 60
+# the analysis service: tests/test_services.py:38-91's Me2017 request, and
+# a TrPi2018 request at config 3's injection (three parameters free), both
+# at nlive 64
+SERVICE_ME_TRUTH = {"log10_mej": -1.4, "log10_vej": -1.1, "beta": 3.0,
+                    "log10_kappa_r": 0.7, "luminosity_distance": 40.0,
+                    "timeshift": 0.0}
+SERVICE_ME_PRIOR = """\
+log10_mej = Uniform(minimum=-3., maximum=-0.5)
+log10_vej = -1.1
+beta = 3.0
+log10_kappa_r = 0.7
+luminosity_distance = 40.0
+timeshift = 0.0
+"""
+SERVICE_GRB_PRIOR = """\
+log10_E0 = Uniform(minimum=50., maximum=53.)
+thetaCore = Uniform(minimum=0.05, maximum=0.2)
+thetaWing = 0.4
+inclination_EM = 0.05
+log10_n0 = Uniform(minimum=-3., maximum=0.)
+p = 2.4
+log10_epsilon_e = -1.2
+log10_epsilon_B = -3.0
+xi_N = 1.0
+luminosity_distance = 350.0
+timeshift = 0.0
+"""
+SERVICE_SAMPLER = {"nlive": 64, "walks": 8, "dlogz": 1.0, "max_iter": 150}
+# the SkyPortal bridge: Me2017 photometry from 0.5 d after the event (the
+# bridge's trigger is the first epoch, so the timeshift reaches back to
+# it), a redshift csv and fix_z (the distance pinned from the cosmology);
+# nlive 128 through analysis_parameters, so that the run holds more than
+# LC_BANDS_DRAWS equal-weight samples (562 at nlive 256 and 67 at the
+# bridge's default 32 in a CPU run of this payload)
+SKYPORTAL_NLIVE = 128
+SKYPORTAL_PRIOR = """\
+log10_mej = Uniform(minimum=-3., maximum=-0.5)
+log10_vej = Uniform(minimum=-2., maximum=-0.5)
+beta = 3.0
+log10_kappa_r = 0.7
+luminosity_distance = Uniform(minimum=10., maximum=100.)
+timeshift = Uniform(minimum=-1., maximum=0.)
+"""
+
+
+def matplotlib_present():
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def bestfit_check(np, torch, analysis, label):
+    """[bestfit]: ``label``_bestfit.json of a CLI run on the card; then
+    compute_chisquare_dict at its best-fit point on the card, counted (one
+    K1 launch exactly); that table and the report's each within
+    BESTFIT_ATOL + BESTFIT_RTOL chi^2/dof of the port's compute on the CPU
+    at the same point on the same data (the production surrogate loaded on the CPU
+    under a name of its own). Returns the report's K1 launches."""
+    import dataclasses
+
+    from nmma_tpu_torch.analysis import EMAnalysis
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+    from nmma_tpu_torch.plotting import compute_chisquare_dict
+
+    with open(label + "_bestfit.json") as f:
+        report = json.load(f)
+    if report["log_evidence"] != analysis.result.logz or \
+            report["Best fit index"] != int(np.argmax(analysis.result.logl)):
+        raise RuntimeError(f"[bestfit] the report does not describe the run: "
+                           f"{report['log_evidence']}, "
+                           f"{report['Best fit index']}")
+    reset_launches()
+    t0 = time.time()
+    card = compute_chisquare_dict(analysis, report["posterior_parameters"])
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    counted = kernel_launches()
+    if counted != (BESTFIT_LAUNCHES, 0, 0):
+        raise RuntimeError(f"[bestfit] the report launched K1-K3 {counted} "
+                           f"times; expected ({BESTFIT_LAUNCHES}, 0, 0)")
+    cpu_model = make_svd_source_model(
+        MODEL + "_bestfit_cpu", SVDModelData.load(ARTIFACT, device="cpu"))
+    cpu = EMAnalysis(dataclasses.replace(
+        analysis.config, model=cpu_model.name, trigger_time=0.0),
+        data=analysis.data_dict, priors=analysis.priors, device="cpu")
+    t0 = time.time()
+    want = compute_chisquare_dict(cpu, report["posterior_parameters"])
+    cpu_s = time.time() - t0
+    worst = 0.0
+    for table in (card, report["chi2_per_dof"]):
+        if sorted(table) != sorted(want):
+            raise RuntimeError(f"[bestfit] filters {sorted(table)} against "
+                               f"the CPU's {sorted(want)}")
+        for filt, row in want.items():
+            for key in ("chi2_per_dof", "chi2_per_dof_with_systematics"):
+                err = abs(table[filt][key] - row[key])
+                worst = max(worst, err / (BESTFIT_ATOL
+                                          + BESTFIT_RTOL * abs(row[key])))
+            if table[filt]["n_points"] != row["n_points"]:
+                raise RuntimeError(f"[bestfit] {filt}: {table[filt]} "
+                                   f"against {row}")
+    if not worst <= 1.0:
+        raise RuntimeError(f"[bestfit] chi^2/dof off the CPU's: the card "
+                           f"{card}, the report {report['chi2_per_dof']}, "
+                           f"the CPU {want}")
+    say("bestfit", file=os.path.basename(label) + "_bestfit.json",
+        filters=len(card), log_likelihood=f"{report['log_likelihood']:.3f}",
+        chi2_per_dof=",".join(f"{f}:{r['chi2_per_dof']:.3f}"
+                              for f, r in sorted(card.items())),
+        worst_over_tolerance=f"{worst:.3e}", card_s=f"{card_s:.3f}",
+        cpu_s=f"{cpu_s:.3f}", k1_launches=counted[0])
+    return counted[0]
+
+
+def lc_bands(np, torch, model, analysis, result, module, attr, plain,
+             launches, tmp, faint=math.inf):
+    """[lc_bands]: plotting.lightcurve_bands on the card (the best fit and
+    LC_BANDS_DRAWS posterior draws in one model call: ``launches`` (K1, K2,
+    K3) exactly; ``result`` must hold at least LC_BANDS_DRAWS equal-weight
+    samples) against the same call with ``module.attr`` swapped for its
+    plain version ``plain`` on the card, within LC_BANDS_TOL[model] (below
+    ``faint``), inf and NaN in the same places; the figure drawn only where
+    matplotlib is present, after the counted call. Returns the kernel's
+    launches."""
+    from nmma_tpu_torch.plotting import lightcurve_bands, lightcurve_fit_plot
+
+    reset_launches()
+    t0 = time.time()
+    got = lightcurve_bands(analysis, result, LC_BANDS_DRAWS)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counted = kernel_launches()
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain)
+    try:
+        want = lightcurve_bands(analysis, result, LC_BANDS_DRAWS)
+    finally:
+        setattr(module, attr, kernel_fn)
+    err = 0.0
+    for key in ("best", "draws", "lo", "hi"):
+        g, w = got[key], want[key]
+        if g.shape != w.shape or not np.array_equal(np.isinf(g),
+                                                    np.isinf(w)) \
+                or not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise RuntimeError(f"[lc_bands] {model} {key}: {g.shape} "
+                               f"against {w.shape}, or inf/NaN moved")
+        sel = np.isfinite(w) & (w < faint)
+        if sel.any():
+            err = max(err, float(np.abs(g[sel] - w[sel]).max()))
+    finite = float(np.isfinite(got["best"]).mean())
+    if counted != launches or not err <= LC_BANDS_TOL[model] \
+            or finite < 0.5 or got["draws"].shape[0] != LC_BANDS_DRAWS:
+        raise RuntimeError(f"[lc_bands] {model}: K1-K3 {counted} (expected "
+                           f"{launches}), {err} mag off the plain kernel, "
+                           f"finite share {finite}, "
+                           f"{got['draws'].shape[0]} draws (expected "
+                           f"{LC_BANDS_DRAWS})")
+    figure = "absent"
+    if matplotlib_present():
+        path = lightcurve_fit_plot(
+            analysis, result, LC_BANDS_DRAWS,
+            save_path=os.path.join(tmp, f"{model}_lightcurves.png"))
+        figure = f"{os.path.basename(path)}:{os.path.getsize(path)}B"
+    say("lc_bands", model=model, batch=1 + got["draws"].shape[0],
+        filters=got["best"].shape[0], times=got["best"].shape[1],
+        k1_k2_k3_launches=",".join(map(str, counted)),
+        seconds=f"{seconds:.3f}", max_abs_dmag_vs_plain=f"{err:.3e}",
+        tolerance_mag=LC_BANDS_TOL[model], best_finite_share=f"{finite:.3f}",
+        matplotlib=figure)
+    return max(counted)
+
+
+class _WebhookSink:
+    """A loopback HTTP server that keeps the JSON bodies POSTed to it."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        received = self.received = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers["Content-Length"])
+                received.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        import threading
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/hook"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def service_phase(np, torch, tmp):
+    """[service]: nmma_tpu_torch.api.AnalysisService on the card on an
+    ephemeral port answers a Me2017 request (K2) with a callback to a
+    loopback server, a TrPi2018 request (K3, full resolution), and a model
+    off the whitelist (400): each request's wall seconds and K1-K3
+    launches; the callback arrives exactly once. Returns the K2 and K3
+    launches."""
+    import urllib.error
+    import urllib.request
+
+    from nmma_tpu_torch.api import AnalysisService
+    from nmma_tpu_torch.injections import create_light_curve_data
+
+    def photometry(truth, model, filters, times, seed):
+        data = create_light_curve_data(truth, model, filters, seed=seed,
+                                       sample_times=times, device=DEVICE)
+        return {f: {k: np.asarray(v).tolist() for k, v in sub.items()}
+                for f, sub in data.items()}
+
+    requests = {
+        "Me2017": dict(SERVICE_SAMPLER, model="Me2017",
+                       prior=SERVICE_ME_PRIOR, photometry=photometry(
+                           SERVICE_ME_TRUTH, "Me2017", ["ztfg", "ztfr"],
+                           np.geomspace(0.4, 8.0, 10), 2)),
+        "TrPi2018": dict(SERVICE_SAMPLER, model="TrPi2018",
+                         prior=SERVICE_GRB_PRIOR, photometry=photometry(
+                             GRB_INJECTION, "TrPi2018", GRB_FILTERS,
+                             np.geomspace(0.2, 12.0, 8), 3)),
+    }
+    sink = _WebhookSink()
+    requests["Me2017"]["callback_url"] = sink.url
+    service = AnalysisService(port=0).start()
+
+    def post(payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{service.port}/analysis",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())
+
+    counts = {}
+    try:
+        for name, payload in requests.items():
+            payload["outdir"] = os.path.join(tmp, f"service_{name}")
+            reset_launches()
+            t0 = time.time()
+            out = post(payload)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counted = kernel_launches()
+            want = (0, counted[1], 0) if name == "Me2017" else \
+                (0, 0, counted[2])
+            if out["status"] != "success" or not math.isfinite(
+                    out["log_evidence"]) or counted != want \
+                    or max(counted) == 0:
+                raise RuntimeError(f"[service] {name}: {out['status']}, "
+                                   f"logZ {out.get('log_evidence')}, K1-K3 "
+                                   f"{counted}")
+            counts[name] = max(counted)
+            say("service", request=name, wall_s=f"{wall:.3f}",
+                logz=f"{out['log_evidence']:.4f}",
+                likelihood_calls=out["n_likelihood_evaluations"],
+                k1_k2_k3_launches=",".join(map(str, counted)),
+                quantiles=",".join(sorted(out["posterior_quantiles"])),
+                webhook=out.get("webhook_status", "none"))
+        reset_launches()
+        t0 = time.time()
+        try:
+            post(dict(requests["Me2017"], model="NotAModel",
+                      callback_url=None))
+            code = 200
+        except urllib.error.HTTPError as err:
+            code = err.code
+        if code != 400 or kernel_launches() != (0, 0, 0):
+            raise RuntimeError(f"[service] a model off the whitelist "
+                               f"answered {code}")
+        say("service", request="NotAModel", status=code,
+            wall_s=f"{time.time() - t0:.3f}")
+    finally:
+        service.stop()
+        sink.close()
+    if len(sink.received) != 1 or sink.received[0]["status"] != "success":
+        raise RuntimeError(f"[service] the callback arrived "
+                           f"{len(sink.received)} times")
+    say("service", callbacks=len(sink.received), device=str(service.device))
+    return counts["Me2017"], counts["TrPi2018"]
+
+
+def skyportal_phase(np, torch, tmp):
+    """[skyportal]: run_from_skyportal_inputs on a Me2017 SkyPortal payload
+    (a photometry csv, a redshift csv, fix_z, nlive 128) through the port's
+    CLI on the card, through the invoke hook, which keeps the run's
+    analysis and, where matplotlib is absent, takes --plot out of the argv.
+    status success, the posterior, result and best-fit files; K2 launches
+    only; then [lc_bands] on the run (--plot's bands). Returns the bridge's
+    K2 launches and [lc_bands]'s."""
+    import csv
+
+    from nmma_tpu_torch.cli import lightcurve_analysis
+    from nmma_tpu_torch.injections import create_light_curve_data
+    from nmma_tpu_torch.ops import me2017_kernel
+    from nmma_tpu_torch.skyportal import run_from_skyportal_inputs
+
+    root = os.path.join(tmp, "skyportal")
+    os.makedirs(root)
+    data = create_light_curve_data(
+        SERVICE_ME_TRUTH, "Me2017", ["ztfg", "ztfr"], seed=5,
+        sample_times=np.geomspace(0.5, 5.0, 8), device=DEVICE)
+    with open(os.path.join(root, "phot.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["mjd", "filter", "mag", "magerr"])
+        for f, sub in data.items():
+            for t, m, e in zip(sub["time"], sub["mag"], sub["mag_error"]):
+                w.writerow([repr(TRIGGER_MJD + float(t)), f, repr(float(m)),
+                            repr(float(e))])
+    with open(os.path.join(root, "z.csv"), "w") as fh:
+        fh.write("redshift\n0.009\n")
+    with open(os.path.join(root, "Me2017.prior"), "w") as fh:
+        fh.write(SKYPORTAL_PRIOR)
+    payload = {"photometry": os.path.join(root, "phot.csv"),
+               "redshift": os.path.join(root, "z.csv"),
+               "prior": os.path.join(root, "Me2017.prior"),
+               "analysis_parameters": {"fix_z": True,
+                                       "nlive": SKYPORTAL_NLIVE}}
+    plot = "drawn" if matplotlib_present() else "removed:matplotlib_absent"
+    runs = []
+
+    def invoke(argv):
+        if plot != "drawn":
+            argv = [a for a in argv if a != "--plot"]
+        runs.append(lightcurve_analysis.main(argv))
+        return runs[-1]
+    reset_launches()
+    t0 = time.time()
+    out = run_from_skyportal_inputs(payload, outdir=os.path.join(root, "run"),
+                                    invoke=invoke)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counted = kernel_launches()
+    label = os.path.join(root, "run", "Me2017_obj")
+    missing = [s for s in ("_result.npz", "_posterior_samples.csv",
+                           "_bestfit.json", "_result_meta.json")
+               if not os.path.exists(label + s)]
+    if out["status"] != "success" or missing or counted[1] == 0 \
+            or counted[0] or counted[2] or not \
+            -1e29 < out["log_bayes_factor"] < 0.0 or \
+            (plot == "drawn") != bool(out["plot_file"]):
+        raise RuntimeError(f"[skyportal] {out}, missing {missing}, K1-K3 "
+                           f"{counted}")
+    with open(os.path.join(root, "run", "Me2017.prior")) as fh:
+        pinned = [ln for ln in fh if ln.startswith("luminosity_distance")]
+    say("skyportal", status=out["status"],
+        logz=f"{out['log_bayes_factor']:.4f}", seconds=f"{seconds:.2f}",
+        k2_launches=counted[1], plot=plot,
+        distance=pinned[0].split("=")[1].strip(),
+        posterior_samples=len(runs[0].result.posterior_indices()))
+    bands_launches = lc_bands(
+        np, torch, "Me2017", runs[0], runs[0].result, me2017_kernel,
+        "me2017_dynamics_from_operands", me2017_kernel.me2017_dynamics_plain,
+        (0, 1, 0), root)
+    return counted[1], bands_launches
 
 
 def main() -> int:
@@ -5052,10 +5519,10 @@ def main() -> int:
     k2_entry = me2017_path(np, torch, gen, sample_times)
     k3_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
-    cli_launches, cli_posterior = cli_path(np, torch)
+    cli_launches, cli_posterior, k1_bands, k1_bestfit = cli_path(np, torch)
     kn_models(np, torch, gen)
     k3_entry.update(grb_ramp_path(np, torch, gen))
-    posterior_config3(np, torch)
+    k3_entry["launches_lc_bands"] = posterior_config3(np, torch)
     mcmc_path(np, torch, cli_posterior)
     em_models(np, torch, gen)
     lbol_path(np, torch)
@@ -5072,6 +5539,15 @@ def main() -> int:
     registry_launches = registry_phase(np, torch)
     item19_s += time.time() - t0 + k1_training.pop("native_s")
     say("item19_phases", seconds=f"{item19_s:.2f}")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        service_k2, service_k3 = service_phase(np, torch, tmp)
+        skyportal_k2, k2_bands = skyportal_phase(np, torch, tmp)
+    say("item19b_phases", seconds=f"{time.time() - t0:.2f}")
+    k2_entry.update(launches_service=service_k2,
+                    launches_skyportal=skyportal_k2,
+                    launches_lc_bands=k2_bands)
+    k3_entry.update(launches_service=service_k3)
     kernels = [{
         "name": "svd_mlp_mags", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/svd_mlp.cu",
@@ -5084,6 +5560,8 @@ def main() -> int:
         "launches_cadences_cli": cadence_launches,
         "launches_lightcurve_generation": generation_launches,
         "launches_registry": registry_launches,
+        "launches_lc_bands": k1_bands,
+        "launches_bestfit_cli": k1_bestfit,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

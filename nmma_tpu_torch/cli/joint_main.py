@@ -34,6 +34,12 @@ import torch
 from .. import resolve_device
 from .parsing import apply_config, check_for_config, write_complete_config
 
+#: an injection's geocent_time beyond this many seconds from zero is an
+#: absolute GPS time (a LIGO-LW table's geocent_end_time), not an offset
+#: from --trigger-time: no offset within a segment comes near it, and GPS
+#: time passed it in 1980
+ABSOLUTE_GPS_S = 1e6
+
 
 def _generation_parser():
     p = argparse.ArgumentParser("nmma-generation")
@@ -237,6 +243,11 @@ def nmma_generation(cli_args=None, device=None):
             # zero-tidal is the standard default for sim_inspiral ingestion
             injection.setdefault("lambda_1", 0.0)
             injection.setdefault("lambda_2", 0.0)
+        if abs(injection.get("geocent_time", 0.0)) > ABSOLUTE_GPS_S:
+            # an absolute time becomes the offset from the trigger, which
+            # is what the likelihood reads (the JAX package reads it as an
+            # offset as it stands, fault 3b)
+            injection["geocent_time"] -= args.trigger_time
 
     conversion = _build_conversion(vars(args), injection)
     phase("conversion_build")

@@ -8,7 +8,8 @@ data or injection, prior shaping (with the sky map's inclination prior of
 model and likelihood assembly (SVD surrogates, and fiesta surrogates
 resolved by name under ``--fiesta-surrogates-dir``), nested sampling with
 checkpoint and resume or the ensemble MCMC (``--sampler mcmc``), result
-files; and the bolometric path. Run it as
+files, the best-fit report (``--bestfit``, on by default) and the figures
+of ``--plot`` (which need matplotlib); and the bolometric path. Run it as
 
     python -m nmma_tpu_torch.cli.lightcurve_analysis config.yaml [flags]
 
@@ -23,11 +24,6 @@ import os
 from .. import resolve_device
 from .parsing import (apply_config, base_analysis_parser, check_for_config,
                       sampler_config_from_args, write_complete_config)
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not in nmma_tpu_torch yet (ROADMAP item {item})")
 
 
 def main(cli_args=None, device=None):
@@ -99,21 +95,29 @@ def lbol_main(cli_args=None, device=None):
     return result
 
 
-def _check_supported(args):
-    """Raise for the options whose modules the port does not have yet."""
-    if args.sampler not in ("nmma-ns", "mcmc", "neuralnet"):
-        raise ValueError(f"unknown sampler {args.sampler!r}")
+def _reports(args, analysis, result=None, posterior=None):
+    """--bestfit's ``{label}_bestfit.json`` and --plot's
+    ``{label}_lightcurves.png`` and ``{label}_corner.png`` (the corner
+    plot where ``posterior`` is given), for ``result`` (the analysis's
+    nested result when None)."""
     if args.bestfit:
-        raise _not_ported("--bestfit (plotting.py)", 19)
+        from ..plotting import post_process_bestfit
+        post_process_bestfit(analysis, result=result)
     if args.plot:
-        raise _not_ported("--plot (plotting.py)", 19)
+        from ..plotting import corner_plot, lightcurve_fit_plot
+        lightcurve_fit_plot(analysis, result=result)
+        if posterior is not None:
+            cfg = analysis.config
+            corner_plot(posterior, save_path=os.path.join(
+                cfg.outdir, f"{cfg.label}_corner.png"))
 
 
 def _single_run(args, device):
     from ..analysis import EMAnalysis, EMAnalysisConfig
     from ..models.svd import SVDModelData, make_svd_source_model
 
-    _check_supported(args)
+    if args.sampler not in ("nmma-ns", "mcmc", "neuralnet"):
+        raise ValueError(f"unknown sampler {args.sampler!r}")
     model_name = args.model
     fiesta_data = None
     if args.svd_path:
@@ -123,13 +127,10 @@ def _single_run(args, device):
     else:
         fiesta_data = _fiesta_source(args, device)
 
-    data = None
-    trigger_time = args.trigger_time or 0.0
-    if args.injection:
-        data, _, trigger_time = data_from_injection(args, device)
-    if args.injection_model and not args.injection:
-        raise ValueError("--injection-model needs --injection")
     if args.detection_limit_fits_file:
+        # read before the injection, whose photometry must see the map's
+        # limit as the likelihood does (the JAX package reads it after,
+        # fault 3e)
         if args.ra is None or args.dec is None:
             raise ValueError(
                 "--detection-limit-fits-file needs --ra and --dec")
@@ -138,6 +139,12 @@ def _single_run(args, device):
             args.detection_limit_fits_file, args.ra, args.dec)
         print(f"detection limit from m4opt map: "
               f"{args.detection_limit:.2f} mag")
+    data = None
+    trigger_time = args.trigger_time or 0.0
+    if args.injection:
+        data, _, trigger_time = data_from_injection(args, device)
+    if args.injection_model and not args.injection:
+        raise ValueError("--injection-model needs --injection")
 
     n_tsteps = args.n_tsteps
     if args.tstep:
@@ -202,6 +209,7 @@ def _single_run(args, device):
             analysis.save_result()
             print(f"--skip-sampling: result regenerated from {ckpt} "
                   f"(logz={analysis.result.logz:.3f}).")
+            _reports(args, analysis)
             return analysis
         print("--skip-sampling: likelihood assembled; exiting before PE "
               "(no checkpoint found to regenerate from).")
@@ -209,6 +217,8 @@ def _single_run(args, device):
     result = analysis.run(verbose=True)
     print(f"log-evidence: {result.logz:.3f} +/- {result.logz_err:.3f} "
           f"({result.ncall} likelihood calls)")
+    _reports(args, analysis, posterior=analysis.posterior_samples()
+             if args.plot else None)
     return analysis
 
 
@@ -268,6 +278,7 @@ def _mcmc_run(args, analysis):
     print(f"mcmc posterior: {len(next(iter(post.values())))} samples "
           f"written to {cfg.outdir}/{cfg.label}_mcmc_result.npz (max R-hat "
           f"{float(np.nanmax(analysis.mcmc_result.rhat)):.3f})")
+    _reports(args, analysis, result=analysis.mcmc_result, posterior=post)
     return analysis
 
 

@@ -240,10 +240,8 @@ def base_analysis_parser(description=""):
     p.add_argument("--skip-sampling", action="store_true")
     p.add_argument("--plot", action="store_true")
     p.add_argument("--verbose", action="store_true")
-    # the JAX package's --bestfit is on by default and writes the
-    # plotting module's bestfit report; the port has no plotting module yet,
-    # so here the flag is off unless given (and then raises)
-    p.add_argument("--bestfit", action="store_true", default=False)
+    # on by default, as in the JAX package: the {label}_bestfit.json report
+    p.add_argument("--bestfit", action="store_true", default=True)
 
     def yaml_dict(value):
         import yaml

@@ -1,14 +1,15 @@
 """Secondary command lines: generation, injections, training, the
 post-processing combiners, job scripts and the model registry.
 
-Port of every entry point of ``nmma_tpu/cli/tools.py`` but
-``plot-svdmodel-benchmarks`` (the reference's console scripts,
-``pyproject.toml:106-126``), with the JAX package's flags. Those that run a
-model or a sampler (lightcurve-generation, nmma-create-injection,
-gwem-resampling, create-svdmodel, svdmodel-benchmark,
-lightcurve-injection-slurm-setup) run on the CUDA card and raise without
-one, unless ``--device cpu`` (or ``device="cpu"``) asks for the CPU; the
-others run on the host. Run as
+Port of every entry point of ``nmma_tpu/cli/tools.py`` (the reference's
+console scripts, ``pyproject.toml:106-126``), with the JAX package's flags,
+and ``nmma-plot-multi-corner`` (``post_processing/plotting_routines.py``).
+Those that run a model or a sampler (lightcurve-generation,
+nmma-create-injection, gwem-resampling, create-svdmodel,
+svdmodel-benchmark, lightcurve-injection-slurm-setup) run on the CUDA card
+and raise without one, unless ``--device cpu`` (or ``device="cpu"``) asks
+for the CPU; the others run on the host. The two that draw
+(plot-svdmodel-benchmarks, nmma-plot-multi-corner) need matplotlib. Run as
 
     python -m nmma_tpu_torch.cli.tools <console-script name> [flags]
 """
@@ -27,6 +28,7 @@ import warnings
 import numpy as np
 
 from .. import resolve_device
+from ..post_processing import plotting_routines
 from .parsing import apply_config, check_for_config
 
 MLP_BACKENDS = ("keras", "tensorflow", "jax", "torch")
@@ -493,6 +495,43 @@ def combine_eos(cli_args=None):
     return weights, trend
 
 
+def plot_svdmodel_benchmarks(cli_args=None):
+    """``plot-svdmodel-benchmarks``: the chi^2-percentile plot of a
+    svdmodel-benchmark json, written as ``{outdir}/<json name>.png``;
+    returns its path (reference: nmma.em.training:plot_benchmarks_cli)."""
+    from ..plotting_utils import pyplot
+
+    config, argv = check_for_config(cli_args)
+    p = argparse.ArgumentParser(prog="plot-svdmodel-benchmarks")
+    p.add_argument("--benchmark-file", required=True)
+    p.add_argument("--outdir", default="benchmarks")
+    args = apply_config(p, config, argv)
+    plt = pyplot()
+
+    with open(args.benchmark_file) as fh:
+        scores = json.load(fh)
+    filters = list(scores)
+    fig, ax = plt.subplots(figsize=(1.2 * len(filters) + 2, 4))
+    for i, f in enumerate(filters):
+        p0, p25, p50, p75, p100 = scores[f]
+        ax.plot([i, i], [p0, p100], color="C0", lw=1)
+        ax.plot([i, i], [p25, p75], color="C0", lw=5, alpha=0.6)
+        ax.plot(i, p50, "o", color="C3")
+    ax.set_xticks(range(len(filters)))
+    ax.set_xticklabels(filters, rotation=45, ha="right")
+    ax.set_yscale("log")
+    ax.set_ylabel(r"reduced $\chi^2$ vs training grid")
+    fig.tight_layout()
+    os.makedirs(args.outdir, exist_ok=True)
+    out = os.path.join(
+        args.outdir,
+        os.path.basename(args.benchmark_file).replace(".json", ".png"))
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    print(f"wrote {out}")
+    return out
+
+
 def convert_skyportal(cli_args=None):
     """``convert-skyportal-lcs``: a SkyPortal photometry csv as an nmma .dat
     file (host; reference nmma.em.io)."""
@@ -689,7 +728,9 @@ COMMANDS = {"lightcurve-generation": lightcurve_generation,
             "create-lightcurve-slurm": create_lightcurve_slurm,
             "svdmodel-download": svdmodel_download,
             "resample-grid": resample_grid,
-            "nmma-make-lcs": make_lcs}
+            "nmma-make-lcs": make_lcs,
+            "plot-svdmodel-benchmarks": plot_svdmodel_benchmarks,
+            "nmma-plot-multi-corner": plotting_routines.main}
 
 
 if __name__ == "__main__":

@@ -155,9 +155,10 @@ def train_tov_emulator(crust_table, param_ranges=None, n_train=128,
     """Fit a ``TOVEmulator`` on ``device`` to NEP-generated EOS solved with
     the port's TOV solver. ``param_ranges`` {name: (lo, hi)} over the NEP
     parameters (default S0 in [28, 36] MeV, L in [30, 90] MeV; the others
-    go to ``eos_from_nep`` by name). As in the JAX package, epochs run in
-    blocks of 500, so ``n_epochs`` is rounded up to a multiple of 500. A
-    dict ``timings`` receives the seconds spent on the targets and the
+    go to ``eos_from_nep`` by name). Exactly ``n_epochs`` epochs run, with
+    the loss printed every 500 and after the last when ``verbose`` (the JAX
+    package runs whole blocks of 500, so it rounds the count up, fault 3g).
+    A dict ``timings`` receives the seconds spent on the targets and the
     fit."""
     device = resolve_device(device)
     if param_ranges is None:
@@ -202,13 +203,13 @@ def train_tov_emulator(crust_table, param_ranges=None, n_train=128,
     opt = torch.optim.Adam(list(params.values()), lr=learning_rate)
     done = 0
     while done < n_epochs:
-        for _ in range(500):
+        for _ in range(min(500, n_epochs - done)):
             opt.zero_grad(set_to_none=True)
             h = torch.tanh(x_in @ params["w1"] + params["b1"])
             loss = torch.mean((h @ params["w2"] + params["b2"] - y) ** 2)
             loss.backward()
             opt.step()
-        done += 500
+        done = min(done + 500, n_epochs)
         if verbose:
             print(f"emulator epoch {done:5d} mse {float(loss.detach()):.5f}")
     if timings is not None:

@@ -115,9 +115,10 @@ def train_flow_posterior(theta, lightcurves, parameter_names,
     theta [N, D]; lightcurves [N, F, T] (non-finite magnitudes become the
     embedding's sentinel), or context vectors [N, C] with ``raw_context``.
     ``init_net`` gives the starting weights (a ``ConditionalFlowNet``).
-    As in the JAX package, epochs run in blocks of n_epochs // 5 when
-    ``verbose`` (else one block), and whole blocks only: the count is
-    rounded up to a multiple of the block.
+    Exactly ``n_epochs`` epochs run; with ``verbose`` the loss is printed
+    every n_epochs // 5 epochs and after the last. (The JAX package runs
+    whole blocks of n_epochs // 5 when verbose, so it rounds the count up,
+    fault 3g; its first ``n_epochs`` minibatches are these.)
     """
     device = resolve_device(device)
     theta = np.asarray(theta, dtype=np.float32)
@@ -142,16 +143,16 @@ def train_flow_posterior(theta, lightcurves, parameter_names,
     done = 0
     while done < n_epochs:
         idx_block = torch.as_tensor(np.stack([
-            rng.choice(n, size=bsz, replace=False) for _ in range(block)]),
-            device=device)
+            rng.choice(n, size=bsz, replace=False)
+            for _ in range(min(block, n_epochs - done))]), device=device)
         for idx in idx_block:
             opt.zero_grad(set_to_none=True)
             loss = -net.log_prob(z_all[idx], lc_all[idx]).mean()
             loss.backward()
             opt.step()
-        done += block
+        done += len(idx_block)
         if verbose:
-            print(f"flow epoch {min(done, n_epochs):5d} "
+            print(f"flow epoch {done:5d} "
                   f"nll {float(loss.detach()):.4f}")
     net.eval()
     return LFIPosterior(net=net, theta_mean=t_mean, theta_std=t_std,

@@ -1,7 +1,8 @@
 """Post-processing: the posterior JS divergences, KDEs, the Hubble and EOS
 combinations, the GW x EM and maximum-mass resamplers, and the
-marginalised light curves of ``lightcurve-marginalisation``
-(``plotting_routines`` waits for the plotting module)."""
+marginalised light curves of ``lightcurve-marginalisation``, and the
+posterior comparison plots of ``plotting_routines`` (imported as a
+module, not re-exported)."""
 
 from .hubble import (combine_hubble_posteriors, event_h0_kdes,
                      h0_trend_from_kdes, hdi,

@@ -239,8 +239,9 @@ def load_gw_samples(template_file=None, hdf5_file=None, coinc_file=None,
 
 def main(args=None, device=None):
     """``lightcurve-marginalisation``: marginalised light-curve bands from
-    GW samples, written to ``{outdir}/marginalised_lc.npz``; returns its
-    path. ``device`` overrides ``--device``.
+    GW samples, written to ``{outdir}/marginalised_lc.npz`` (with --plot
+    also the figure ``marginalised_lc.pdf``, which needs matplotlib);
+    returns the npz's path. ``device`` overrides ``--device``.
 
     Flag names follow the reference's ``lc_marginalisation_parser``
     (post_processing/parser.py:114-135).
@@ -276,10 +277,6 @@ def main(args=None, device=None):
                    help="torch device to run on (default: the CUDA card; "
                         "'cpu' runs on the CPU)")
     ns = p.parse_args(args)
-    if ns.plot:
-        raise NotImplementedError(
-            "--plot (plotting.py) is not in nmma_tpu_torch yet (ROADMAP "
-            "item 19)")
     device = resolve_device(device if device is not None else ns.device)
 
     gw = load_gw_samples(template_file=ns.template_file,
@@ -305,6 +302,11 @@ def main(args=None, device=None):
              filters=np.asarray(filters, dtype=object),
              percentiles=np.asarray([5, 50, 95]))
     print(f"wrote {out}: bands {bands.shape}")
+    if ns.plot:
+        from ..plotting import plot_marginalised_bands
+        plot_marginalised_bands(
+            times, bands, filters,
+            os.path.join(ns.outdir, "marginalised_lc.pdf"))
     return out
 
 

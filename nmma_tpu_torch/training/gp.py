@@ -11,9 +11,11 @@ one batched kernel contraction, batch-first.
 
 ``torch.linalg.cholesky`` raises on a matrix that is not positive definite,
 where ``jnp.linalg.cholesky`` returns NaN; ``cholesky`` here keeps the JAX
-semantics (``cholesky_ex``, NaN where the factorisation failed). The fit
-stops at the first NaN NLL and keeps the last finite hyperparameters, where
-the JAX package goes on with NaN ones (fault 3h).
+semantics (``cholesky_ex``, NaN where the factorisation failed). The white
+noise is bounded below at 1e-5 of each GP's amplitude, as sklearn's
+``WhiteKernel`` bounds its noise level on normalised targets: without the
+bound adam drives it down until the f32 Cholesky fails, and the JAX package
+goes on with NaN hyperparameters (fault 3h).
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+
+
+#: the white noise's lower bound, ln of its ratio to the GP's amplitude
+LOG_NOISE_FLOOR = math.log(1e-5)
 
 
 def cholesky(k):
@@ -107,14 +113,19 @@ def fit_gp_coefficients(x, coeffs, n_steps=400, learning_rate=0.05,
     """Fit all (F, C) GPs together on ``device``: x [N, P]; coeffs
     [N, F, C].
 
-    Up to ``n_steps`` adam steps on the summed NLL. Where a step lands on
-    hyperparameters whose kernel matrix the f32 Cholesky cannot factor (a
-    NaN NLL: the noise driven below the matrix's f32 conditioning), the fit
-    stops and keeps the last hyperparameters with a finite NLL; the JAX
-    package carries the NaN on into every parameter (fault 3h). The result's
-    ``nll_history`` holds the NLL before each step taken, ``stopped_at``
-    the step whose NLL was not finite (None if all were) and ``log_noise``
-    the fitted noise, which prediction does not need."""
+    Up to ``n_steps`` adam steps on the summed NLL. After each step the
+    white noise is projected back onto its bound, exp(log_noise) >= 1e-5
+    exp(log_amp) per GP (``LOG_NOISE_FLOOR``): that keeps every kernel
+    matrix's condition number below about N / 1e-5, which the f32 Cholesky
+    factors, so the fit runs all its steps (fault 3h: the JAX package has
+    no bound, and its NLL goes NaN by step 160 on 256 points). Until the
+    bound first binds the steps are the JAX package's. As a guard, a step
+    whose NLL is not finite still stops the fit, which keeps the last
+    hyperparameters with a finite NLL. The result's ``nll_history`` holds
+    the NLL before each step taken, ``stopped_at`` the step whose NLL was
+    not finite (None if all were), ``bound_from`` the first step after
+    which the bound bound (None if it never did) and ``log_noise`` the
+    fitted noise, which prediction does not need."""
     device = resolve_device(device)
     x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
     n, p = x.shape
@@ -126,7 +137,7 @@ def fit_gp_coefficients(x, coeffs, n_steps=400, learning_rate=0.05,
               for k, v in initial_gp_params(y_all, p).items()}
     opt = torch.optim.Adam(list(params.values()), lr=learning_rate)
     block = max(1, n_steps // (5 if verbose else 1))
-    history, stopped_at = [], None
+    history, stopped_at, bound_from = [], None, None
     last = {k: v.detach().clone() for k, v in params.items()}
     for step in range(1, n_steps + 1):
         opt.zero_grad(set_to_none=True)
@@ -144,6 +155,13 @@ def fit_gp_coefficients(x, coeffs, n_steps=400, learning_rate=0.05,
         last = {k: v.detach().clone() for k, v in params.items()}
         loss.backward()
         opt.step()
+        with torch.no_grad():
+            floor = params["log_amp"] + LOG_NOISE_FLOOR
+            if bound_from is None and bool((params["log_noise"]
+                                            < floor).any()):
+                bound_from = step
+            params["log_noise"].copy_(torch.maximum(params["log_noise"],
+                                                    floor))
         history.append(loss.detach())
         if verbose and (step % block == 0 or step == n_steps):
             print(f"gp step {step:4d} nll {float(loss):.3f}")
@@ -163,6 +181,7 @@ def fit_gp_coefficients(x, coeffs, n_steps=400, learning_rate=0.05,
     gp.nll_history = (torch.stack(history).cpu().numpy() if history
                       else np.zeros(0))
     gp.stopped_at = stopped_at
+    gp.bound_from = bound_from
     gp.log_noise = params["log_noise"]
     return gp
 

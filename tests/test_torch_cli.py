@@ -24,8 +24,8 @@ result keys in both packages, and ``EMAnalysis.run_mcmc`` agrees with a
 nested run on the posterior medians. ``--sampler neuralnet`` runs in the
 port and writes the JAX package's result keys. ``--ztf-sampling`` and
 ``--rubin-ToO-type platinum`` give both packages the same epochs and logL.
-Each option whose module the port does not have yet raises
-NotImplementedError naming its ROADMAP item; the
+--bestfit (on by default) and --plot write the JAX package's report keys
+and the figures; the
 sky-map options (--fits-file, --detection-limit-fits-file) and
 --fiesta-surrogates-dir give the JAX package's priors, detection limit and
 logL.
@@ -196,19 +196,39 @@ def test_logl_at_the_injection_is_finite(config):
     assert at_injection > float(seeded.max())
 
 
-UNPORTED = {
-    "bestfit": (["--bestfit"], 19),
-    "plot": (["--plot"], 19),
-}
+def test_bestfit_and_plot_match_jax(config, jax_f64_times):
+    """--bestfit (on by default in both packages) on a tiny full run, with
+    --plot on the port's: each package writes {label}_bestfit.json with the
+    same keys, the same filters and points in its chi^2 table, and None for
+    no evidence nowhere; the port's chi^2/dof at its own best fit equals the JAX
+    package's compute at that point within 1e-3 + 1e-3 chi^2/dof; the port
+    draws {label}_lightcurves.png and {label}_corner.png."""
+    import nmma_tpu.plotting as j_plotting
 
-
-@pytest.mark.parametrize("case", list(UNPORTED))
-def test_unported_options_name_their_item(config, case):
     root, path = config
-    flags, item = UNPORTED[case]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        t_cli.main([path, "--outdir", str(root / case), "--skip-sampling",
-                    *flags], device="cpu")
+    flags = ["--nlive", "32", "--n-delete", "16", "--dlogz", "5"]
+    t_ana = t_cli.main([path, "--outdir", str(root / "plot_port"), "--plot",
+                        *flags], device="cpu")
+    # the JAX figures are not compared: its run only writes the report
+    j_ana = j_cli.main([path, "--outdir", str(root / "plot_jax"), *flags])
+    got = json.loads((root / "plot_port" / "cli_bestfit.json").read_text())
+    want = json.loads((root / "plot_jax" / "cli_bestfit.json").read_text())
+    assert sorted(got) == sorted(want)
+    assert sorted(got["posterior_parameters"]) == \
+        sorted(want["posterior_parameters"])
+    assert sorted(got["chi2_per_dof"]) == sorted(want["chi2_per_dof"])
+    assert got["log_evidence"] == t_ana.result.logz
+    assert got["log_likelihood"] == pytest.approx(
+        float(t_ana.result.logl.max()))
+    jax_chi2 = j_plotting.compute_chisquare_dict(
+        j_ana, got["posterior_parameters"])
+    for filt, row in got["chi2_per_dof"].items():
+        assert row["n_points"] == jax_chi2[filt]["n_points"]
+        for key in ("chi2_per_dof", "chi2_per_dof_with_systematics"):
+            assert abs(row[key] - jax_chi2[filt][key]) <= \
+                1e-3 + 1e-3 * abs(jax_chi2[filt][key])
+    for suffix in ("_lightcurves.png", "_corner.png"):
+        assert (root / "plot_port" / f"cli{suffix}").stat().st_size > 0
 
 
 CADENCE_FLAGS = {
@@ -346,13 +366,21 @@ def test_sky_map_and_fiesta_options_match_jax(config, case, jax_f64_times):
     --detection-limit-fits-file (the m4opt limit at --ra, --dec) and
     --fiesta-surrogates-dir beside --svd-path, in both packages with
     --skip-sampling: the same priors, detection limit and logL at 64
-    seeded unit points (rtol 1e-4, atol 1e-2, identical sentinels)."""
+    seeded unit points (rtol 1e-4, atol 1e-2, identical sentinels). The
+    JAX package is handed the map's limit as --detection-limit too."""
     root, path = config
     flags = sky_map_flags(root, case)
-    j_ana = j_cli.main([path, "--skip-sampling", "--outdir",
-                        str(root / f"{case}_jax"), *flags])
     t_ana = t_cli.main([path, "--skip-sampling", "--outdir",
                         str(root / f"{case}_port"), *flags], device="cpu")
+    j_flags = flags
+    if case == "limit_fits":
+        # the JAX package reads the map after making the injection (fault
+        # 3e); given the map's limit as --detection-limit, its injection
+        # sees the limit as the port's does
+        j_flags = [*flags, "--detection-limit",
+                   repr(t_ana.config.detection_limit)]
+    j_ana = j_cli.main([path, "--skip-sampling", "--outdir",
+                        str(root / f"{case}_jax"), *j_flags])
     assert t_ana.priors.sampled_names == j_ana.priors.sampled_names
     assert t_ana.config.detection_limit == j_ana.config.detection_limit
     if case == "fits":
@@ -370,6 +398,38 @@ def test_sky_map_and_fiesta_options_match_jax(config, case, jax_f64_times):
     ok = want > -1e29
     assert ok.sum() >= 12
     np.testing.assert_allclose(got[ok], want[ok], rtol=RTOL, atol=ATOL)
+
+
+def test_detection_limit_map_reaches_the_injection(config):
+    """Fault 3e: the m4opt map's limit (20.94 mag everywhere) is read
+    before the injection is made, so the injected photometry and the
+    likelihood both see it: the logL at the injection equals the
+    --detection-limit 20.94 run's and is negative (the JAX package, which
+    reads the map after the injection, gives it a large positive logL)."""
+    from nmma_tpu_torch.io.fits import write_bintable
+
+    root, path = config
+    write_bintable(str(root / "limit_2094.fits"),
+                   {"LIMMAG": np.full(12 * 16**2, 20.94)},
+                   extra_header={"NSIDE": 16, "ORDERING": "NESTED"})
+    at_injection = {}
+    for case, flags in (
+            ("map", ["--detection-limit-fits-file",
+                     str(root / "limit_2094.fits"), "--ra", "120.0",
+                     "--dec", "-30.0"]),
+            ("flag", ["--detection-limit", "20.94"])):
+        ana = t_cli.main([path, "--skip-sampling", "--outdir",
+                          str(root / f"limit_{case}"), *flags],
+                         device="cpu")
+        assert ana.config.detection_limit == pytest.approx(20.94)
+        names = ana.priors.sampled_names
+        u = [[(INJECTION[n] - ana.priors[n].minimum)
+              / (ana.priors[n].maximum - ana.priors[n].minimum)
+              if n in INJECTION else 0.5 for n in names]]
+        at_injection[case] = float(ana.batched_logl(torch.tensor(u))[0])
+    assert -1e29 < at_injection["flag"] < 0.0
+    assert at_injection["map"] == pytest.approx(at_injection["flag"],
+                                                rel=1e-6)
 
 
 def test_unported_entry_points_name_their_items(config, tmp_path):

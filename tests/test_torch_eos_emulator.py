@@ -147,10 +147,21 @@ def test_lec_set_from_jax_file(split, tmp_path):
 def test_train_tov_emulator_reproduces_its_solver():
     crust = crust_table()
     timings = {}
-    emu = t_emu.train_tov_emulator(crust, n_train=40, hidden=32,
-                                   n_epochs=600, device="cpu",
-                                   timings=timings)
-    assert timings["epochs"] == 1000          # whole blocks of 500 (3g)
+    steps = []
+    orig = torch.optim.Adam.step
+
+    def count(self, *a, **k):
+        steps.append(1)
+        return orig(self, *a, **k)
+    torch.optim.Adam.step = count
+    try:
+        emu = t_emu.train_tov_emulator(crust, n_train=40, hidden=32,
+                                       n_epochs=600, device="cpu",
+                                       timings=timings)
+    finally:
+        torch.optim.Adam.step = orig
+    # exactly 600 epochs, not the JAX package's 1,000 (fault 3g)
+    assert timings["epochs"] == len(steps) == 600
     assert timings["n_eos"] >= 30
     held = np.array([[31.0, 50.0], [34.0, 70.0], [29.0, 80.0]])
     keep, want = t_emu.emulator_targets(held, ["S0", "L"], crust,

@@ -9,11 +9,14 @@ package's SVD code. Tolerances:
   1e-5; its gradient: rtol 1e-3 with atol 1e-3 of the largest component
   (f32 batched Cholesky and solves, in another order);
 * a matrix that is not positive definite: NaN in both, where
-  ``torch.linalg.cholesky`` alone would raise; a fit that reaches one stops
-  at the last finite NLL in the port (fault 3h), whose hyperparameters
-  equal the JAX package's after as many updates within 1e-4;
-* five adam steps: the hyperparameters within 1e-4 (adam moves each by
-  about its learning rate a step, so the sign of the gradient rules);
+  ``torch.linalg.cholesky`` alone would raise;
+* fault 3h (fixed in the port): the port bounds the white noise below at
+  1e-5 of each GP's amplitude, so on 3h's own input (256 points, 9 x 10
+  GPs; the test fits the GP that fails first) the fit runs its 400 steps
+  with a finite NLL; without the bound it stops at the last finite NLL;
+* five adam steps, before the bound binds: the hyperparameters within 1e-4
+  (adam moves each by about its learning rate a step, so the sign of the
+  gradient rules);
 * the compact GP's alphas: rtol 1e-3 of their largest (one 24 x 24 f32
   Cholesky of a matrix with jitter 1e-6);
 * magnitudes through ``svd_gp_surrogate_mags``: atol 1e-3 mag, inf at the
@@ -90,10 +93,19 @@ def test_cholesky_keeps_the_nan_of_jax():
     assert np.isnan(np.asarray(jnp.linalg.cholesky(bad))).any()
 
 
-def test_fit_steps_match_jax(decomposed):
-    *_, x, coeffs = decomposed
+@pytest.mark.parametrize("grid", ["grid24", "fault_3h"])
+def test_fit_steps_match_jax(request, grid):
+    """Five adam steps, before the noise bound binds (the port holds the
+    JAX package's steps until then), on the 24-point grid and on fault
+    3h's GP."""
+    if grid == "grid24":
+        *_, x, coeffs = request.getfixturevalue("decomposed")
+    else:
+        x, coeffs = request.getfixturevalue("input_3h")
+        coeffs = coeffs[GP_3H]
     want = j_gp.fit_gp_coefficients(x, coeffs, n_steps=5)
     got = t_gp.fit_gp_coefficients(x, coeffs, n_steps=5, device="cpu")
+    assert got.bound_from is None
     for k in ("log_amp", "log_length", "log_alpha"):
         np.testing.assert_allclose(getattr(got, k).numpy(),
                                    np.asarray(getattr(want, k)), atol=1e-4)
@@ -178,26 +190,75 @@ def test_train_svd_gp_model_fits(decomposed):
     assert tuple(gp.predict(x).shape) == (3, 1, 4)
 
 
-def test_fit_stops_at_the_last_finite_step(decomposed):
-    """Fault 3h: where adam drives the kernel matrices past what the f32
-    Cholesky factors, the JAX package's hyperparameters and alphas go NaN;
-    the port stops there and keeps the hyperparameters of the last finite
-    NLL, whose NLL it recomputes within rtol 1e-5. (Parity before the
-    failure is test_fit_steps_match_jax; at this learning rate the runs
-    near the failure are chaotic, and the two packages' f32 sums part.)"""
-    *_, x, coeffs = decomposed
-    got = t_gp.fit_gp_coefficients(x, coeffs, n_steps=60, learning_rate=2.0,
-                                   device="cpu")
-    assert got.stopped_at is not None
-    assert len(got.nll_history) == got.stopped_at - 1
+@pytest.fixture(scope="module")
+def input_3h(tmp_path_factory):
+    """Fault 3h's input: 1,024 seeded points of the production Bu2019lm
+    surrogate on its own grid (the port's plain K1 on the CPU, seed 18)
+    written as bulla files, the first 256 in file order read back and
+    decomposed at C = 10 on 100 times: x [256, 4], coefficients [256, 9,
+    10] (chip_smoke.py's [svd_train] grid and [gp_train] subset)."""
+    from nmma_tpu_torch.models import SVDModelData
+    from nmma_tpu_torch.training import read_bulla_grid
+    from nmma_tpu_torch.training.svd import (SVDTrainingConfig,
+                                             write_bulla_grid)
+
+    prod = SVDModelData.load("artifacts/Bu2019lm_production_svd.npz",
+                             device="cpu")
+    names = list(prod.parameter_names)
+    theta = np.random.default_rng(18).uniform(
+        prod.host["param_mins"], prod.host["param_maxs"], (1024, len(names)))
+    with torch.no_grad():
+        mags = prod({k: torch.tensor(theta[:, i], dtype=torch.float32)
+                     for i, k in enumerate(names)},
+                    torch.tensor(prod.tt, dtype=torch.float32)).numpy()
+    grid = tmp_path_factory.mktemp("grid_3h")
+    write_bulla_grid(grid, "Bu2019lm",
+                     {k: theta[:, i] for i, k in enumerate(names)}, prod.tt,
+                     mags, list(prod.filters))
+    files = sorted(str(p) for p in grid.iterdir())[:256]
+    entries, pnames, filters = read_bulla_grid(files, model="Bu2019lm")
+    _, x, coeffs = t_gp._svd_decompose(
+        entries, pnames, filters, SVDTrainingConfig(n_coeff=10,
+                                                    n_tsteps=100))
+    return x, coeffs
+
+
+# the GP of fault 3h's input whose NLL goes NaN first without the noise
+# bound (every GP's adam trajectory is its own, so alone it fails as in the
+# full fit)
+GP_3H = (slice(None), slice(2, 3), slice(0, 1))
+
+
+def test_fit_stops_at_the_last_finite_step(input_3h, monkeypatch):
+    """Fault 3h, fixed in the port: on 3h's own input the white noise is
+    held at or above 1e-5 of the amplitude, and the fit runs its 400 adam
+    steps with a finite NLL at every step (the JAX package's goes NaN by
+    step 160). Without the bound the same fit reaches a matrix the f32
+    Cholesky cannot factor; the guard then stops it and keeps the
+    hyperparameters of the last finite NLL, whose NLL it recomputes within
+    rtol 1e-5."""
+    x, coeffs = input_3h
+    coeffs = coeffs[GP_3H]
+    got = t_gp.fit_gp_coefficients(x, coeffs, n_steps=400, device="cpu")
+    assert got.stopped_at is None and got.bound_from is not None
+    assert len(got.nll_history) == 400
     assert np.isfinite(got.nll_history).all()
     assert np.isfinite(got.alpha_vecs.numpy()).all()
-    broken = j_gp.fit_gp_coefficients(x, coeffs, n_steps=60,
-                                      learning_rate=2.0)
-    assert np.isnan(broken.alpha_vecs).any()
+    assert got.nll_history[-1] < got.nll_history[0]
+    relative = (got.log_noise - got.log_amp).numpy()
+    assert (relative >= np.float32(t_gp.LOG_NOISE_FLOOR) - 1e-5).all()
+
+    monkeypatch.setattr(t_gp, "LOG_NOISE_FLOOR", -np.inf)
+    unbounded = t_gp.fit_gp_coefficients(x, coeffs, n_steps=400,
+                                         device="cpu")
+    assert unbounded.stopped_at is not None
+    assert len(unbounded.nll_history) == unbounded.stopped_at - 1
+    assert np.isfinite(unbounded.nll_history).all()
+    assert np.isfinite(unbounded.alpha_vecs.numpy()).all()
     n = x.shape[0]
     y = torch.tensor(coeffs.reshape(n, -1).T.astype(np.float32))
-    kept = {k: getattr(got, k) for k in ("log_amp", "log_length",
-                                          "log_alpha", "log_noise")}
+    kept = {k: getattr(unbounded, k) for k in ("log_amp", "log_length",
+                                                "log_alpha", "log_noise")}
     nll = t_gp.gp_nll(kept, torch.tensor(x, dtype=torch.float32), y).sum()
-    np.testing.assert_allclose(float(nll), got.nll_history[-1], rtol=1e-5)
+    np.testing.assert_allclose(float(nll), unbounded.nll_history[-1],
+                               rtol=1e-5)

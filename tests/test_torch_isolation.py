@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing all of ``nmma_tpu_torch`` and
 the port's scripts (scripts/torch_*.py) loads no JAX, no flax and nothing of
-the JAX package, and its entry points refuse to fall back to the CPU when no
-CUDA device is present and none was asked for."""
+the JAX package (nor matplotlib or pandas, which the card's machine lacks),
+and its entry points refuse to fall back to the CPU when no CUDA device is
+present and none was asked for."""
 
 import os
 import subprocess
@@ -28,9 +29,11 @@ for path in scripts:
         "port_script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 top = {n.split(".")[0] for n in sys.modules}
-# flax and msgpack are absent on the card's machine, and h5py may be
+# flax, msgpack, matplotlib and pandas are absent on the card's machine,
+# and h5py may be
 bad = sorted(t for t in top if t.startswith("jax")
-             or t in ("flax", "nmma_tpu", "msgpack", "h5py"))
+             or t in ("flax", "nmma_tpu", "msgpack", "h5py", "matplotlib",
+                      "pandas"))
 print("imported", len(names), "modules and", len(scripts),
       "scripts; forbidden:", bad)
 new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
@@ -69,13 +72,18 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.mlmodel.convert", "nmma_tpu_torch.eos.emulator",
        "nmma_tpu_torch.eos.lec", "nmma_tpu_torch.strategies",
        "nmma_tpu_torch.native", "nmma_tpu_torch.cluster",
-       "nmma_tpu_torch.registry"}
+       "nmma_tpu_torch.registry", "nmma_tpu_torch.plotting",
+       "nmma_tpu_torch.plotting_utils",
+       "nmma_tpu_torch.post_processing.plotting_routines",
+       "nmma_tpu_torch.api", "nmma_tpu_torch.api.app",
+       "nmma_tpu_torch.skyportal"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
 import torch
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
 from nmma_tpu_torch import eos, injections, registry
+from nmma_tpu_torch.api import AnalysisService, run_nmma_model
 from nmma_tpu_torch.cli import joint_main, lightcurve_analysis, tools
 from nmma_tpu_torch.eos import emulator, lec
 from nmma_tpu_torch import mlmodel, training
@@ -161,6 +169,8 @@ ENTRY_POINTS = {
         lambda: registry.load_reference_registry_model("never-named"),
     "models.svd.ingest_nmma_svd_model": lambda: svd.ingest_nmma_svd_model(
         "never-read", "never-named"),
+    "api.AnalysisService": lambda: AnalysisService(port=0),
+    "api.run_nmma_model": lambda: run_nmma_model({"model": "Me2017"}),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():

@@ -70,8 +70,9 @@ def write_inputs(root, kind):
         return prior, injection
     from test_torch_gw_data import write_ligolw
     injection = root / "inj.xml"
-    # geocent_end_time is the offset from --trigger-time, which is how both
-    # packages' CLIs read an injection's geocent_time
+    # geocent_end_time is the offset from --trigger-time, which is how the
+    # JAX package reads an injection's geocent_time (fault 3b); the port
+    # reads an absolute time as one too
     write_ligolw(injection, [[0, INJ["mass_1"], INJ["mass_2"], 0, 0, 0, 0,
                               0, 0, INJ["theta_jn"], INJ["phase"],
                               INJ["luminosity_distance"], INJ["ra"],
@@ -133,6 +134,37 @@ def test_generation_matches_jax(generated):
     np.testing.assert_allclose(t_meta["test_logl"], snr2 / 2, rtol=2e-3)
     assert t_meta["device"] == "cpu"
     assert set(t_meta["timings_s"]) >= {"gw_data", "fiducial", "total"}
+
+
+def test_absolute_xml_injection_is_at_the_trigger(tmp_path):
+    """Fault 3b: a LIGO-LW table whose geocent_end_time is the absolute GPS
+    time of the trigger (tests/test_ligolw.py's layout, 1187008882 s and
+    400000000 ns) injects at the trigger in the port: its fiducial and
+    strain equal those of the table that writes the offset 0 (the JAX
+    package reads the absolute time as an offset and injects 1.19e9 s
+    late, so its parity cases are handed the offsets)."""
+    from test_torch_gw_data import write_ligolw
+
+    prior = tmp_path / "bns.prior"
+    prior.write_text(PRIOR)
+    dumps = {}
+    for kind, (sec, ns) in (("offset", (0, 0)),
+                            ("absolute", (1187008882, 400000000))):
+        injection = tmp_path / f"{kind}.xml"
+        write_ligolw(injection, [[0, INJ["mass_1"], INJ["mass_2"], 0, 0, 0,
+                                  0, 0, 0, INJ["theta_jn"], INJ["phase"],
+                                  INJ["luminosity_distance"], INJ["ra"],
+                                  INJ["dec"], INJ["psi"], sec, ns]])
+        path = t_cli.nmma_generation(
+            GEN + ["--prior-file", str(prior), "--injection-file",
+                   str(injection), "--outdir", str(tmp_path / kind),
+                   "--label", "bns"], device="cpu")
+        with open(path, "rb") as f:
+            dumps[kind] = pickle.load(f)
+    assert dumps["absolute"]["fiducial"]["geocent_time"] == 0.0
+    assert dumps["absolute"]["fiducial"] == dumps["offset"]["fiducial"]
+    for a, b in zip(dumps["absolute"]["ifos"], dumps["offset"]["ifos"]):
+        np.testing.assert_array_equal(a.strain, b.strain)
 
 
 def test_analysis_writes_the_posterior(generated, tmp_path):

@@ -167,8 +167,10 @@ def test_flow_training_matches_jax():
 
 
 def test_flow_training_rounds_epochs_up_to_whole_blocks():
-    """Fault 3g: verbose training runs whole blocks of n_epochs // 5, as
-    the JAX package's scanned blocks do."""
+    """Fault 3g, fixed in the port: verbose training runs exactly
+    n_epochs epochs (13 run 13, where the JAX package's whole blocks of
+    13 // 5 run 15), and its weights equal the silent run's, which draws
+    the same minibatches."""
     rng = np.random.default_rng(4)
     theta = rng.normal(size=(20, 1)).astype(np.float32)
     ctx = rng.normal(size=(20, 2)).astype(np.float32)
@@ -178,21 +180,21 @@ def test_flow_training_rounds_epochs_up_to_whole_blocks():
     def count(self, *a, **k):
         steps.append(1)
         return orig(self, *a, **k)
-    torch.optim.Adam.step = count
-    try:
-        t_train(theta, ctx, ["a"], n_epochs=7, batch_size=8, verbose=True,
-                raw_context=True, device="cpu")
-    finally:
-        torch.optim.Adam.step = orig
-    assert len(steps) == 7          # block 1: 7 blocks of one
-    steps.clear()
-    torch.optim.Adam.step = count
-    try:
-        t_train(theta, ctx, ["a"], n_epochs=12, batch_size=8, verbose=True,
-                raw_context=True, device="cpu")
-    finally:
-        torch.optim.Adam.step = orig
-    assert len(steps) == 12         # block 2: six blocks
+
+    runs = {}
+    for n_epochs, verbose in ((7, True), (13, True), (13, False)):
+        steps.clear()
+        torch.optim.Adam.step = count
+        try:
+            runs[n_epochs, verbose] = t_train(
+                theta, ctx, ["a"], n_epochs=n_epochs, batch_size=8,
+                verbose=verbose, raw_context=True, device="cpu")
+        finally:
+            torch.optim.Adam.step = orig
+        assert len(steps) == n_epochs
+    for a, b in zip(runs[13, True].net.parameters(),
+                    runs[13, False].net.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_vicreg_loss_and_augmentation_match_jax():

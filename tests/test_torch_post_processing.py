@@ -410,8 +410,10 @@ def test_lightcurve_marginalisation_cli_matches(tmp_path, models, eos_dir):
     ok = np.isfinite(w)
     assert ok.mean() > 0.9
     np.testing.assert_allclose(g[ok], w[ok], rtol=0, atol=MAG_ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        t_marg.main(args + ["--plot", "--device", "cpu"])
+    # --plot draws the bands (matplotlib imports here)
+    t_marg.main(args + ["--plot", "--outdir", str(tmp_path / "plot"),
+                        "--device", "cpu"])
+    assert (tmp_path / "plot" / "marginalised_lc.pdf").stat().st_size > 0
 
 
 def test_resamplers_run_on_the_port_sampler(eos_dir, baryonic_dirs):
