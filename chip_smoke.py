@@ -382,10 +382,32 @@ light-curve bands on the runs that make them (K1, K2, K3):
               [lc_bands], and takes out --plot where matplotlib is absent):
               status success, a logZ off the sentinel, the posterior,
               result and best-fit files, K2 launches only.
+ 51. mesh     (runs after phase 5) the nested sampler split over a
+              torch.distributed group (nmma_tpu_torch.parallel), on phase
+              4's analysis with nlive 1,024, n_delete 128, 10 iterations:
+              (a) one rank on NCCL in this process, NestedSampler with
+              make_mesh() against it without: samples, logL and logZ bit
+              for bit, K1 launches 1 + iterations x walks in both runs (at
+              1,024 and 128 rows), and as many likelihood collectives with
+              the mesh; (b) two ranks sharing the card (this script with
+              --mesh-rank, gloo, each killed after MESH_TIMEOUT_S): the
+              ranks' results bit for bit equal, K1 launches 1 +
+              iterations x walks on each at half the batch (512 and 64
+              rows), shard_logl on 8192 seeded rows
+              against the one-process batched_logl (sentinels identical,
+              |dlogL| <= 1e-2 + 1e-4 |logL|, K1's 1e-4 mag carried to
+              logL), and logZ within 3 max(hypot(errors), 0.1) of the
+              one-process run's (whether it is bit for bit is printed).
+              Printed: wall s of each run, each collective's mean us at
+              B = 128 (NCCL, one rank; gloo, 64 rows a rank) and the card's
+              idle share over a sharded walk step at B = 128.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Without a CUDA device it exits 1 at once.
+
+``python3 chip_smoke.py --mesh-rank RANK DIRECTORY`` is one rank of phase
+51(b), started by the smoke itself.
 """
 
 from __future__ import annotations
@@ -442,6 +464,10 @@ K2_OPS_STEP = 2
 K2_LTOT_TOL = 1e-4
 # the samplers' walk batch (n_delete=128), where K1 and K2 run 961 times
 SAMPLER_BATCH = 128
+# [mesh]: the capped sampler's iterations, and the seconds after which the
+# two ranks of (b) are killed
+MESH_ITERATIONS = 10
+MESH_TIMEOUT_S = 240
 # the TrPi2018 path: BASELINE config 3, scripts/bench_grb_pe.py:17-50
 GRB_FILTERS = ["ztfg", "ztfr", "ztfi", "X-ray-1keV", "radio-6GHz"]
 GRB_PRIOR_TEXT = """\
@@ -5333,6 +5359,258 @@ def skyportal_phase(np, torch, tmp):
     return counted[1], bands_launches
 
 
+def mesh_run(torch, analysis, cfg, mesh, device=None):
+    """(result, K1 launches, likelihood collectives, wall s, the sorted
+    distinct row counts of K1's launches) of the capped sampler on
+    ``analysis``, split over ``mesh`` when it is given."""
+    from nmma_tpu_torch.inference import NestedSampler
+    from nmma_tpu_torch.ops import svd_kernel
+    from nmma_tpu_torch.parallel import mesh as M
+
+    rows, kernel = set(), svd_kernel.svd_surrogate_mags
+
+    def counted(x, *weights):
+        rows.add(x.shape[0])
+        return kernel(x, *weights)
+
+    svd_kernel.LAUNCHES = M.COLLECTIVES = 0
+    svd_kernel.svd_surrogate_mags = counted
+    t0 = time.time()
+    try:
+        result = NestedSampler(analysis.batched_logl, analysis.priors.ndim,
+                               cfg.sampler, device=device, mesh=mesh).run(
+            verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        svd_kernel.svd_surrogate_mags = kernel
+    return (result, svd_kernel.LAUNCHES, M.COLLECTIVES, time.time() - t0,
+            sorted(rows))
+
+
+def mesh_collective_us(torch, mesh, rows, calls=200, warmup=10):
+    """Mean us of one all_reduce of a [rows] f32 buffer on the card over
+    the mesh's group: ``calls`` back to back, then one synchronize."""
+    import torch.distributed as dist
+
+    buf = torch.zeros(rows, device=mesh.device)
+    for _ in range(warmup):
+        dist.all_reduce(buf, group=mesh.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dist.all_reduce(buf, group=mesh.group)
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def mesh_walk(torch, fn, u, profile=True, calls=50, warmup=3):
+    """(wall ms, device-busy ms, idle share) of one sharded walk step
+    ``fn(u)``: wall over ``calls`` back-to-back calls, busy from one
+    profiled call (only where ``profile``; the call is made either way, so
+    every rank makes the same collectives)."""
+    for _ in range(warmup):
+        fn(u)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(u)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    if not profile:
+        fn(u)
+        torch.cuda.synchronize()
+        return wall_ms, float("nan"), float("nan")
+    busy_ms = device_profile(torch, lambda: fn(u))[0]
+    return wall_ms, busy_ms, 1.0 - busy_ms / wall_ms
+
+
+def mesh_analysis(torch, root, device):
+    """[mesh]'s analysis from ``root/config.json`` (phase 4's, with the
+    capped sampler) on ``device``, and the 8192 unit-cube rows drawn from a
+    generator seeded with 0 there."""
+    from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
+    from nmma_tpu_torch.inference import NestedSamplerConfig
+
+    with open(os.path.join(root, "config.json")) as f:
+        fields = json.load(f)
+    cfg = EMAnalysisConfig(**{**fields, "sampler": NestedSamplerConfig(
+        **fields["sampler"])})
+    analysis = EMAnalysis(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return cfg, analysis, analysis.priors.sample_units(gen, BATCH)
+
+
+def mesh_worker(rank, root):
+    """One rank of phase 51(b): the capped sampler split over two gloo
+    ranks sharing card 0, shard_logl on the seeded rows, the collective's
+    time and a walk step's idle share; writes ``root/rank{rank}.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
+    from nmma_tpu_torch.parallel import mesh as M
+
+    M.initialize_distributed(init_method=f"file://{root}/gloo_store",
+                             world_size=2, rank=rank, backend="gloo")
+    mesh = M.make_mesh(device="cuda:0")
+    make_svd_source_model(MODEL, SVDModelData.load(ARTIFACT,
+                                                   device=mesh.device))
+    cfg, analysis, u = mesh_analysis(torch, root, mesh.device)
+    result, launches, collectives, seconds, rows = mesh_run(
+        torch, analysis, cfg, mesh)
+    sharded = M.shard_logl(analysis.batched_logl, mesh)
+    logl = sharded(u).cpu().numpy()
+    collective_us = mesh_collective_us(torch, mesh, SAMPLER_BATCH)
+    walk = mesh_walk(torch, sharded, u[:SAMPLER_BATCH], profile=rank == 0)
+    dist.barrier()
+    np.savez(os.path.join(root, f"rank{rank}.npz"),
+             samples_u=result.samples_u, logl=result.logl, logz=result.logz,
+             logz_err=result.logz_err, niter=result.niter,
+             ncall=result.ncall, launches=launches, collectives=collectives,
+             seconds=seconds, rows=rows, logl_rows=logl,
+             collective_us=collective_us, walk=walk)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(np, torch, cfg, tmp):
+    """Phase 51 on phase 4's analysis ``cfg``: (a) one NCCL rank in this
+    process, (b) two gloo ranks sharing the card. Returns K1's launches in
+    (a)'s sharded run and on each rank of (b)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from nmma_tpu_torch.inference import NestedSamplerConfig
+    from nmma_tpu_torch.parallel import mesh as M
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "mesh")
+    os.makedirs(root)
+    cfg = dataclasses.replace(cfg, sampler=NestedSamplerConfig(
+        nlive=1024, n_delete=128, max_iter=MESH_ITERATIONS))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    cfg, analysis, u = mesh_analysis(torch, root, DEVICE)
+
+    # (a) one rank on NCCL: the mesh run against the plain run
+    M.initialize_distributed(init_method=f"file://{root}/nccl_store",
+                             world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = M.make_mesh()
+        dist.barrier()      # the communicator forms here, not in a run
+        plain, plain_k1, _, plain_s, plain_rows = mesh_run(
+            torch, analysis, cfg, None, device=DEVICE)
+        sharded, mesh_k1, collectives, mesh_s, mesh_rows = mesh_run(
+            torch, analysis, cfg, mesh)
+        nccl_us = mesh_collective_us(torch, mesh, SAMPLER_BATCH)
+        walk = mesh_walk(torch, M.shard_logl(analysis.batched_logl, mesh),
+                         u[:SAMPLER_BATCH])
+    finally:
+        dist.destroy_process_group()
+    expected = 1 + plain.niter * cfg.sampler.walks
+    for field in ("samples_u", "logl", "logz"):
+        if not np.array_equal(getattr(sharded, field), getattr(plain, field)):
+            raise RuntimeError(f"[mesh] one NCCL rank: {field} differs from "
+                               "the plain run")
+    whole = [cfg.sampler.n_delete, cfg.sampler.nlive]
+    if (plain_k1, mesh_k1, collectives) != (expected,) * 3 \
+            or plain_rows != whole or mesh_rows != whole:
+        raise RuntimeError(
+            f"[mesh] K1 launches {plain_k1} (plain), {mesh_k1} (mesh) and "
+            f"{collectives} collectives at rows {plain_rows}, {mesh_rows}, "
+            f"expected {expected} each at rows {whole}")
+    say("mesh", part="a", backend="nccl", ranks=1, iterations=plain.niter,
+        logz=f"{plain.logz:.4f}", bitwise_vs_plain=True,
+        seconds_plain=f"{plain_s:.3f}", seconds_mesh=f"{mesh_s:.3f}",
+        k1_launches=mesh_k1, collectives=collectives,
+        collective_us_b128=f"{nccl_us:.2f}", walk_wall_ms=f"{walk[0]:.4f}",
+        walk_busy_ms=f"{walk[1]:.4f}", walk_idle_share=f"{walk[2]:.4f}")
+
+    # (b) two gloo ranks sharing the card, this script with --mesh-rank
+    logl_one = analysis.batched_logl(u).cpu().numpy()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                        "LOCAL_RANK")}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(rank),
+         root], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in (0, 1)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(
+                timeout=max(1.0, MESH_TIMEOUT_S - (time.time() - t0))))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    world_s = time.time() - t0
+    for rank, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"[mesh] rank {rank} exited {proc.returncode}"
+                               f":\n{out}\n{err[-4000:]}")
+    ranks = []
+    for rank in (0, 1):
+        with np.load(os.path.join(root, f"rank{rank}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    first, second = ranks
+    for field in ("samples_u", "logl", "logz", "niter", "ncall"):
+        if not np.array_equal(first[field], second[field]):
+            raise RuntimeError(f"[mesh] the two ranks' {field} differ")
+    niter = int(first["niter"])
+    expected = 1 + niter * cfg.sampler.walks
+    half = [cfg.sampler.n_delete // 2, cfg.sampler.nlive // 2]
+    for rank, r in enumerate(ranks):
+        if int(r["launches"]) != expected or int(r["collectives"]) \
+                != expected or list(r["rows"]) != half:
+            raise RuntimeError(
+                f"[mesh] rank {rank}: K1 launches {int(r['launches'])} at "
+                f"rows {list(r['rows'])} and {int(r['collectives'])} "
+                f"collectives, expected {expected} at rows {half}")
+    got = first["logl_rows"]
+    usable = logl_one > -1e29
+    if not np.array_equal(usable, got > -1e29):
+        raise RuntimeError("[mesh] shard_logl's sentinels differ from the "
+                           "one-process batched_logl's")
+    dlogl = np.abs(got - logl_one)[usable]
+    if np.any(dlogl > LOGL_ATOL + LOGL_RTOL * np.abs(logl_one[usable])):
+        raise RuntimeError(f"[mesh] shard_logl off the one-process "
+                           f"batched_logl by {float(dlogl.max())}")
+    dz = abs(float(first["logz"]) - plain.logz)
+    dz_gate = 3.0 * max(math.hypot(float(first["logz_err"]),
+                                   plain.logz_err), 0.1)
+    if not dz < dz_gate:
+        raise RuntimeError(f"[mesh] two ranks' logZ {float(first['logz'])} "
+                           f"against one process's {plain.logz}: |dlogZ| "
+                           f"{dz} >= {dz_gate}")
+    bitwise = all(np.array_equal(first[f], np.asarray(getattr(plain, f)))
+                  for f in ("samples_u", "logl", "logz"))
+    walk = first["walk"]
+    say("mesh", part="b", backend="gloo", ranks=2, device="cuda:0",
+        iterations=niter, logz=f"{float(first['logz']):.4f}",
+        logz_one_process=f"{plain.logz:.4f}", dlogz=f"{dz:.4f}",
+        dlogz_gate=f"{dz_gate:.4f}", bitwise_ranks=True,
+        bitwise_vs_one_process=bitwise,
+        logl_rows=BATCH, logl_bitwise=bool(np.array_equal(got, logl_one)),
+        max_abs_dlogl=f"{float(dlogl.max()) if dlogl.size else 0.0:.3e}",
+        seconds_world=f"{world_s:.3f}",
+        seconds_run=",".join(f"{float(r['seconds']):.3f}" for r in ranks),
+        k1_launches_per_rank=expected,
+        k1_rows=",".join(str(int(n)) for n in first["rows"]),
+        collective_us_b64_a_rank=",".join(
+            f"{float(r['collective_us']):.2f}" for r in ranks),
+        walk_wall_ms=f"{walk[0]:.4f}", walk_busy_ms=f"{walk[1]:.4f}",
+        walk_idle_share=f"{walk[2]:.4f}")
+    say("mesh", seconds=f"{time.time() - t_phase:.2f}")
+    return mesh_k1, expected
+
+
 def main() -> int:
     import torch
 
@@ -5516,6 +5794,9 @@ def main() -> int:
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
             k1_launches=launches)
 
+        # 51. the sampler split over a torch.distributed group
+        k1_mesh, k1_mesh_rank = mesh_phase(np, torch, cfg, tmp)
+
     k2_entry = me2017_path(np, torch, gen, sample_times)
     k3_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
@@ -5562,6 +5843,7 @@ def main() -> int:
         "launches_registry": registry_launches,
         "launches_lc_bands": k1_bands,
         "launches_bestfit_cli": k1_bestfit,
+        "launches_mesh": k1_mesh, "launches_mesh_rank": k1_mesh_rank,
     }, k2_entry, k3_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5571,4 +5853,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

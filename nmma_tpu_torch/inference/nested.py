@@ -15,6 +15,10 @@ reference's external samplers (``nmma/core/base.py:290-369``):
   JAX package does after each jitted chunk (reference cadence semantics:
   ``check_point_delta_t``).
 
+With a ``mesh`` (``nmma_tpu_torch.parallel``) every rank of a process group
+runs the whole sampler and the likelihood calls are split over the ranks;
+every rank ends with the result one process would give.
+
 Proposal-scale adaptation is Robbins-Monro toward a target acceptance rate.
 The random numbers come from a seeded ``torch.Generator``, so a run does
 not reproduce the JAX package's draws, only its statistics. A checkpoint
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import agree, check_divides, shard_logl
 
 NEG_INF = -1e30
 
@@ -50,6 +55,7 @@ class NestedSamplerConfig:
     seed: int = 42
     max_seconds: float = math.inf  # wall-clock cap, tested after each chunk
     check_point_delta_t: float = 1800.0   # seconds (reference parsing.py:125)
+    profile_dir: str = None      # write a torch.profiler trace of one chunk
 
 
 @dataclass
@@ -111,14 +117,31 @@ class NestedSampler:
     values stay above ``-9.9e29`` (the sentinel contract of the JAX
     package's sampler). The run is on the CUDA card unless the caller
     passes ``device``.
+
+    With a ``mesh`` (``parallel.make_mesh()`` on every rank, under
+    ``torchrun``) that has a process group, each likelihood batch is split
+    over its ranks (``parallel.shard_logl``); ``nlive`` and ``n_delete``
+    must divide into them. The device is the mesh's unless ``device`` is
+    given. Only rank 0 prints, writes the checkpoint and writes the
+    profiler trace; every rank reads the checkpoint on resume, so its path
+    must be on storage the ranks share. A signal or ``max_seconds`` seen by
+    one rank ends every rank after the same chunk.
     """
 
     def __init__(self, logl_fn: Callable, ndim: int,
                  config: NestedSamplerConfig = NestedSamplerConfig(),
-                 device=None):
-        self.logl_fn = logl_fn
+                 device=None, mesh=None):
         self.ndim = ndim
         self.config = config
+        self.mesh = mesh
+        self._lead = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            check_divides("nlive", config.nlive, mesh)
+            check_divides("n_delete", config.n_delete, mesh)
+            logl_fn = shard_logl(logl_fn, mesh)
+            if device is None:
+                device = mesh.device
+        self.logl_fn = logl_fn
         self.device = resolve_device(device)
         # f32 like every other tensor of the run (the JAX package's
         # jnp.asarray of the float64 decrements)
@@ -244,6 +267,36 @@ class NestedSampler:
         st.it += 1
         return dead_u, dead_logl, logw, log_x_after
 
+    def _run_chunk(self, st: NSState, gen):
+        """Up to ``chunk_size`` iterations; the dead points of each as
+        lists (u, logl, logw, log_x)."""
+        cfg = self.config
+        chunk = ([], [], [], [])
+        for _ in range(min(cfg.chunk_size, cfg.max_iter - st.it)):
+            for parts, new in zip(chunk, self._iteration(st, gen)):
+                parts.append(new)
+        return chunk
+
+    def _traced_chunk(self, st: NSState, gen):
+        """``_run_chunk`` under torch.profiler, its Chrome trace written
+        into ``profile_dir`` as ``nested_sampler_it{first iteration}.json``
+        (rank 0 only; the other ranks run the chunk untraced)."""
+        if not self._lead:
+            return self._run_chunk(st, gen)
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        first = st.it
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])) as prof:
+            chunk = self._run_chunk(st, gen)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.config.profile_dir, f"nested_sampler_it{first}.json"))
+        return chunk
+
     def run(self, verbose=True, checkpoint_path=None,
             resume=False) -> NestedSamplerResult:
         """Sample until ``dlogz``, ``max_iter`` or ``max_seconds``.
@@ -254,7 +307,8 @@ class NestedSampler:
         chunk in progress (reference signal discipline,
         nmma/core/mpi_setup.py:639-649); the handlers are restored on
         return. ``resume=True`` continues from the checkpoint when one
-        exists."""
+        exists. With ``profile_dir`` set, the second chunk (the first after
+        a resume) is traced with torch.profiler into that directory."""
         interrupted = {"flag": False}
         old_handlers = {}
         if checkpoint_path is not None:
@@ -290,11 +344,13 @@ class NestedSampler:
             st, dead = self.init_state(gen), ([], [], [], [])
         t0 = t_last_ckpt = time.time()
         n_call_0 = st.n_call
+        profiled = False
         while st.it < cfg.max_iter:
-            chunk = ([], [], [], [])
-            for _ in range(min(cfg.chunk_size, cfg.max_iter - st.it)):
-                for parts, new in zip(chunk, self._iteration(st, gen)):
-                    parts.append(new)
+            if cfg.profile_dir and not profiled and st.it > 0:
+                chunk = self._traced_chunk(st, gen)
+                profiled = True
+            else:
+                chunk = self._run_chunk(st, gen)
             # one device -> host transfer per chunk
             for parts, new in zip(dead, chunk):
                 parts.append(_host(torch.stack(new)).reshape(
@@ -303,24 +359,28 @@ class NestedSampler:
             logz_remain = float(st.logl_live.max()) + float(st.log_x)
             dlogz = float(np.logaddexp(logz, logz_remain) - logz)
             elapsed = time.time() - t0
-            if verbose:
+            # the ranks' own stop conditions, agreed on by every rank
+            stop_signal, over_time = agree(
+                self.mesh, interrupted["flag"], elapsed > cfg.max_seconds)
+            if verbose and self._lead:
                 eff = float(st.n_accept) / max(st.n_propose, 1)
                 rate = (st.n_call - n_call_0) / max(elapsed, 1e-9)
                 print(f"it={st.it:6d} ncall={st.n_call:9d} "
                       f"logz={logz:10.3f} dlogz={dlogz:8.4f} "
                       f"eff={eff:5.3f} scale={float(st.scale):7.4f} "
                       f"evals/s={rate:8.0f}", flush=True)
-            if checkpoint_path is not None and (
-                    interrupted["flag"]
+            if checkpoint_path is not None and self._lead and (
+                    stop_signal
                     or time.time() - t_last_ckpt > cfg.check_point_delta_t):
                 st.rng_state = gen.get_state()
                 self.save_checkpoint(checkpoint_path, st, dead)
                 t_last_ckpt = time.time()
-            if interrupted["flag"]:
-                print("interrupt received: checkpoint written, exiting run "
-                      "loop (resume with resume=True)", flush=True)
+            if stop_signal:
+                if self._lead:
+                    print("interrupt received: checkpoint written, exiting "
+                          "run loop (resume with resume=True)", flush=True)
                 break
-            if dlogz < cfg.dlogz or elapsed > cfg.max_seconds:
+            if dlogz < cfg.dlogz or over_time:
                 break
         return self._finalise(st, *dead)
 

@@ -76,7 +76,8 @@ new = {"nmma_tpu_torch.inference.mcmc", "nmma_tpu_torch.models.spectral",
        "nmma_tpu_torch.plotting_utils",
        "nmma_tpu_torch.post_processing.plotting_routines",
        "nmma_tpu_torch.api", "nmma_tpu_torch.api.app",
-       "nmma_tpu_torch.skyportal"}
+       "nmma_tpu_torch.skyportal", "nmma_tpu_torch.parallel",
+       "nmma_tpu_torch.parallel.mesh"}
 if bad or len(names) < 15 or not new <= set(names) or not scripts:
     raise SystemExit(1)
 
@@ -86,7 +87,7 @@ from nmma_tpu_torch import eos, injections, registry
 from nmma_tpu_torch.api import AnalysisService, run_nmma_model
 from nmma_tpu_torch.cli import joint_main, lightcurve_analysis, tools
 from nmma_tpu_torch.eos import emulator, lec
-from nmma_tpu_torch import mlmodel, training
+from nmma_tpu_torch import mlmodel, parallel, training
 from nmma_tpu_torch.inference import EnsembleMCMC, NestedSampler
 from nmma_tpu_torch.likelihood import PhotometryData
 from nmma_tpu_torch.models import DetectorLightCurveModel
@@ -171,6 +172,7 @@ ENTRY_POINTS = {
         "never-read", "never-named"),
     "api.AnalysisService": lambda: AnalysisService(port=0),
     "api.run_nmma_model": lambda: run_nmma_model({"model": "Me2017"}),
+    "parallel.make_mesh": lambda: parallel.make_mesh(),
 }
 if not torch.cuda.is_available():
     for name, make in ENTRY_POINTS.items():
