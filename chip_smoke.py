@@ -911,7 +911,6 @@ def me2017_path(np, torch, gen, sample_times):
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
     from nmma_tpu_torch.inference import NestedSamplerConfig
     from nmma_tpu_torch.ops import me2017_kernel as k2
-    from nmma_tpu_torch.ops import svd_kernel
 
     # 6. K2 against its plain version at the main path's shapes
     def draw(b):   # the parameter ranges of tests/test_pallas_kernel.py
@@ -978,10 +977,10 @@ def me2017_path(np, torch, gen, sample_times):
         shells, per_sample, per_step = k2.me2017_operands(
             *draw(n_ties), sample_times)
         shells = k2.tied_operands(shells, stride)
-        before = k2.LAUNCHES
+        before = k2_launches()
         ltot, r_photo = k2.me2017_dynamics_from_operands(
             shells, per_sample, per_step)
-        launched = k2.LAUNCHES - before
+        launched = k2_launches() - before
         ltot_ref, r_ref, gap, r_cand = k2.me2017_dynamics_plain(
             shells, per_sample, per_step, with_ties=True)
         torch.cuda.synchronize()
@@ -1025,14 +1024,14 @@ def me2017_path(np, torch, gen, sample_times):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mb = torch.cuda.memory_allocated() / 2**20
-        svd_kernel.LAUNCHES = k2.LAUNCHES = 0
+        reset_counts("k1", "k2")
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        logl_launches = k2.LAUNCHES
-        if logl_launches != 1 or svd_kernel.LAUNCHES != 0:
+        logl_launches = k2_launches()
+        if logl_launches != 1 or k1_launches() != 0:
             raise RuntimeError(f"Me2017 batched_logl launched K2 "
                                f"{logl_launches} times and K1 "
-                               f"{svd_kernel.LAUNCHES} times, not once and "
+                               f"{k1_launches()} times, not once and "
                                "never")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
@@ -1078,7 +1077,7 @@ def me2017_path(np, torch, gen, sample_times):
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("me2017_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
-            k2_launches=logl_launches, k1_launches=svd_kernel.LAUNCHES,
+            k2_launches=logl_launches, k1_launches=k1_launches(),
             calls=logl_calls, wall_ms=f"{logl_ms:.4f}",
             evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
             evals_per_s_rounds=",".join(
@@ -1091,19 +1090,19 @@ def me2017_path(np, torch, gen, sample_times):
 
         # 8. the nested sampler on the Me2017 path
         t0 = time.time()
-        svd_kernel.LAUNCHES = k2.LAUNCHES = 0
+        reset_counts("k1", "k2")
         result = analysis.run(verbose=False)
         torch.cuda.synchronize()
-        launches = k2.LAUNCHES
+        launches = k2_launches()
         seconds = time.time() - t0
         if not math.isfinite(result.logz):
             raise RuntimeError(f"Me2017 logZ not finite: {result.logz}")
         expected = 1 + result.niter * cfg.sampler.walks
         if launches != expected or launches <= 0 \
-                or svd_kernel.LAUNCHES != 0:
+                or k1_launches() != 0:
             raise RuntimeError(f"the Me2017 sampler launched K2 {launches} "
                                f"times (expected {expected}) and K1 "
-                               f"{svd_kernel.LAUNCHES} times")
+                               f"{k1_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
             if not os.path.exists(os.path.join(cfg.outdir,
@@ -1112,7 +1111,7 @@ def me2017_path(np, torch, gen, sample_times):
         say("me2017_sampler", logz=f"{result.logz:.4f}",
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
-            k2_launches=launches, k1_launches=svd_kernel.LAUNCHES)
+            k2_launches=launches, k1_launches=k1_launches())
 
     return {
         "name": "me2017_dynamics", "route": "cuda",
@@ -1185,10 +1184,9 @@ def grb_path(np, torch, gen):
     from nmma_tpu_torch.inference import NestedSamplerConfig
     from nmma_tpu_torch.models import grb
     from nmma_tpu_torch.ops import grb_kernel as k3
-    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
 
     def reset():
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = k3.LAUNCHES = 0
+        reset_launches()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grb_") as tmp:
         data_path = os.path.join(tmp, "injection.dat")
@@ -1235,7 +1233,7 @@ def grb_path(np, torch, gen):
                 max_rel_err=f"{rel:.3e}", max_abs_err=f"{max_abs:.3e}",
                 ref_max=f"{scale:.4e}")
         # a shape the kernel is not built for is refused before a launch
-        launched = k3.LAUNCHES
+        launched = k3_launches()
         wide = [o.repeat_interleave(3, dim=-1).contiguous() if i < 3 else o
                 for i, o in enumerate(ops)]
         refused = False
@@ -1243,7 +1241,7 @@ def grb_path(np, torch, gen):
             k3.eats_flux(*wide)
         except ValueError:
             refused = True
-        if not refused or k3.LAUNCHES != launched:
+        if not refused or k3_launches() != launched:
             raise RuntimeError(f"K3 took R={wide[0].shape[-1]}, beyond the "
                                "shapes it is built for")
         ops = operands(BATCH)
@@ -1278,20 +1276,20 @@ def grb_path(np, torch, gen):
             for n_phi in (5, 16):
                 ops = k3.edge_operands(8, 8, n_r, 37, n_phi, len(GRB_FILTERS),
                                        seed=n_r + n_phi, device=DEVICE)
-                launched = k3.LAUNCHES
+                launched = k3_launches()
                 got = k3.eats_flux(*ops)
                 want = k3.eats_flux_plain(*ops)
                 torch.cuda.synchronize()
                 rel = relative_error(torch, got, want)
                 zeros = want == 0
-                if k3.LAUNCHES != launched + 1 or not math.isfinite(rel) \
+                if k3_launches() != launched + 1 or not math.isfinite(rel) \
                         or rel > K3_TOL or not torch.isfinite(got).all() \
                         or not torch.equal(got == 0, zeros):
                     raise RuntimeError(
                         f"K3 disagrees on hand-made rows at R={n_r}, "
                         f"Ph={n_phi}: max relative error {rel} (tolerance "
                         f"{K3_TOL}), zeros {int((got == 0).sum())} against "
-                        f"{int(zeros.sum())}, {k3.LAUNCHES - launched} "
+                        f"{int(zeros.sum())}, {k3_launches() - launched} "
                         "launches")
                 say("k3_edges", R=n_r, Ph=n_phi, T=37,
                     shape="x".join(map(str, got.shape)),
@@ -1306,12 +1304,12 @@ def grb_path(np, torch, gen):
         reset()
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        logl_launches = k3.LAUNCHES
-        if logl_launches != 1 or svd_kernel.LAUNCHES != 0 \
-                or me2017_kernel.LAUNCHES != 0:
+        logl_launches = k3_launches()
+        if logl_launches != 1 or k1_launches() != 0 \
+                or k2_launches() != 0:
             raise RuntimeError(
                 f"TrPi2018 batched_logl launched K3 {logl_launches} times, "
-                f"K1 {svd_kernel.LAUNCHES} and K2 {me2017_kernel.LAUNCHES} "
+                f"K1 {k1_launches()} and K2 {k2_launches()} "
                 "times, not once, never and never")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
@@ -1354,8 +1352,8 @@ def grb_path(np, torch, gen):
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("grb_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
-            k3_launches=logl_launches, k1_launches=svd_kernel.LAUNCHES,
-            k2_launches=me2017_kernel.LAUNCHES, calls=logl_calls,
+            k3_launches=logl_launches, k1_launches=k1_launches(),
+            k2_launches=k2_launches(), calls=logl_calls,
             wall_ms=f"{logl_ms:.4f}",
             evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
             evals_per_s_rounds=",".join(
@@ -1371,17 +1369,17 @@ def grb_path(np, torch, gen):
         reset()
         result = analysis.run(verbose=False)
         torch.cuda.synchronize()
-        launches = k3.LAUNCHES
+        launches = k3_launches()
         seconds = time.time() - t0
         if not math.isfinite(result.logz):
             raise RuntimeError(f"TrPi2018 logZ not finite: {result.logz}")
         expected = 1 + result.niter * cfg.sampler.walks
         if launches != expected or launches <= 0 \
-                or svd_kernel.LAUNCHES != 0 or me2017_kernel.LAUNCHES != 0:
+                or k1_launches() != 0 or k2_launches() != 0:
             raise RuntimeError(
                 f"the TrPi2018 sampler launched K3 {launches} times "
-                f"(expected {expected}), K1 {svd_kernel.LAUNCHES} and K2 "
-                f"{me2017_kernel.LAUNCHES} times")
+                f"(expected {expected}), K1 {k1_launches()} and K2 "
+                f"{k2_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
             if not os.path.exists(os.path.join(cfg.outdir,
@@ -1390,8 +1388,8 @@ def grb_path(np, torch, gen):
         say("grb_sampler", logz=f"{result.logz:.4f}",
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
-            k3_launches=launches, k1_launches=svd_kernel.LAUNCHES,
-            k2_launches=me2017_kernel.LAUNCHES)
+            k3_launches=launches, k1_launches=k1_launches(),
+            k2_launches=k2_launches())
 
     return {
         "name": "grb_eats_flux", "route": "cuda",
@@ -1413,7 +1411,6 @@ def combined_logl(np, torch, gen):
                                        make_combined_source_model)
     from nmma_tpu_torch.ops import grb_kernel as k3
     from nmma_tpu_torch.ops import me2017_kernel as k2
-    from nmma_tpu_torch.ops import svd_kernel
 
     model = "Me2017_TrPi2018_smoke"
     make_combined_source_model(model, [get_source_model("Me2017"),
@@ -1436,10 +1433,10 @@ def combined_logl(np, torch, gen):
             error_budget=1.0, filters=filters)
         analysis = EMAnalysis(cfg, device=DEVICE)
         u = analysis.priors.sample_units(gen, n_b)
-        svd_kernel.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+        reset_launches()
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        launches = (svd_kernel.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES)
+        launches = (k1_launches(), k2_launches(), k3_launches())
         if launches != (0, 1, 1):
             raise RuntimeError(f"the combined batched_logl launched (K1, K2, "
                                f"K3) {launches} times, not (0, 1, 1)")
@@ -1517,18 +1514,17 @@ def cli_path(np, torch):
     run's K1 launches, its posterior, and [lc_bands]'s and [bestfit]'s K1
     launches; then [bestfit] and [lc_bands] on the run."""
     from nmma_tpu_torch.cli import lightcurve_analysis
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    from nmma_tpu_torch.ops import svd_kernel
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         config, config_path = cli_config(tmp)
         t0 = time.time()
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-            grb_kernel.LAUNCHES = 0
+        reset_launches()
         analysis = lightcurve_analysis.main([config_path])
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
-                    grb_kernel.LAUNCHES)
+        launches = (k1_launches(), k2_launches(),
+                    k3_launches())
         result = analysis.result
         walks = analysis.config.sampler.walks
         # the injection's light curve, the initial live set, one batch per
@@ -1601,7 +1597,6 @@ def kn_models(np, torch, gen):
     photometry each model makes at its injection; the card against the port
     on the CPU at B = 128 on the same unit points."""
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
 
     filters = ["sdssu", "ztfg", "ztfr", "ztfi", "2massks"]
     for model, (prior_text, injection, tmin) in KN_MODELS.items():
@@ -1624,13 +1619,12 @@ def kn_models(np, torch, gen):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base_mb = torch.cuda.memory_allocated() / 2**20
-            svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-                grb_kernel.LAUNCHES = 0
+            reset_launches()
             logl = analysis.batched_logl(u)
             torch.cuda.synchronize()
             peak_mb = torch.cuda.max_memory_allocated() / 2**20
-            launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
-                        grb_kernel.LAUNCHES)
+            launches = (k1_launches(), k2_launches(),
+                        k3_launches())
             if launches != (0, 0, 0):
                 raise RuntimeError(f"{model} launched K1, K2, K3 {launches} "
                                    "times")
@@ -1692,10 +1686,9 @@ def grb_ramp_path(np, torch, gen):
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
     from nmma_tpu_torch.models import grb
     from nmma_tpu_torch.ops import grb_kernel as k3
-    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
 
     def reset():
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = k3.LAUNCHES = 0
+        reset_launches()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ramp_") as tmp:
         data_path = os.path.join(tmp, "injection.dat")
@@ -1741,7 +1734,7 @@ def grb_ramp_path(np, torch, gen):
         max_rel = 0.0
         for n in sorted({1, min(1000, ops[0].shape[0]), ops[0].shape[0]}):
             sub = rows_of(ops, n)
-            launched = k3.LAUNCHES
+            launched = k3_launches()
             got = k3.eats_flux(*sub)
             want = k3.eats_flux_plain(*sub)
             torch.cuda.synchronize()
@@ -1750,8 +1743,8 @@ def grb_ramp_path(np, torch, gen):
             residue = float(torch.where(exact, got.abs() + want.abs(),
                                         0.0).max())
             if got.shape != (n, sub[0].shape[1], len(GRB_FILTERS), 1) \
-                    or k3.LAUNCHES != launched + 1 or not math.isfinite(rel) \
-                    or rel > K3_TOL or not torch.isfinite(got).all() \
+                    or k3_launches() != launched + 1 \
+                    or not math.isfinite(rel) or rel > K3_TOL or not torch.isfinite(got).all() \
                     or not torch.equal(got.abs() < tiny, want.abs() < tiny):
                 raise RuntimeError(
                     f"K3's per-row mode disagrees at {n} rows: max relative "
@@ -1836,8 +1829,8 @@ def grb_ramp_path(np, torch, gen):
         reset()
         _, mags = analysis.model(p64)
         torch.cuda.synchronize()
-        if k3.LAUNCHES != calls(64):
-            raise RuntimeError(f"the ramp at B=64 launched K3 {k3.LAUNCHES} "
+        if k3_launches() != calls(64):
+            raise RuntimeError(f"the ramp at B=64 launched K3 {k3_launches()} "
                                f"times, not {calls(64)}")
         kernel_fn = k3.eats_flux
         k3.eats_flux = k3.eats_flux_plain
@@ -1860,12 +1853,12 @@ def grb_ramp_path(np, torch, gen):
         reset()
         logl = analysis.batched_logl(u[:64])
         torch.cuda.synchronize()
-        if (k3.LAUNCHES, svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES) != \
+        if (k3_launches(), k1_launches(), k2_launches()) != \
                 (calls(64), 0, 0):
             raise RuntimeError(
                 f"the ramp's batched_logl at B=64 launched K3, K1, K2 "
-                f"{k3.LAUNCHES}, {svd_kernel.LAUNCHES}, "
-                f"{me2017_kernel.LAUNCHES} times")
+                f"{k3_launches()}, {k1_launches()}, "
+                f"{k2_launches()} times")
         usable = logl > -1e29
         if not torch.equal(usable, logl_plain > -1e29):
             raise RuntimeError("the ramp's sentinels differ from the plain "
@@ -1892,8 +1885,8 @@ def grb_ramp_path(np, torch, gen):
             logl = analysis.batched_logl(ub)
             torch.cuda.synchronize()
             peak_mb = torch.cuda.max_memory_allocated() / 2**20
-            launches = (k3.LAUNCHES, svd_kernel.LAUNCHES,
-                        me2017_kernel.LAUNCHES)
+            launches = (k3_launches(), k1_launches(),
+                        k2_launches())
             if launches != (calls(b), 0, 0):
                 raise RuntimeError(
                     f"the ramp's batched_logl at B={b} launched K3, K1, K2 "
@@ -1947,8 +1940,8 @@ def grb_ramp_path(np, torch, gen):
     reset()
     m_inj = curve(energy_exponential=a, log10_Eend=le, t_start=t_start,
                   injection_duration=t_end)
-    if k3.LAUNCHES != calls(1):
-        raise RuntimeError(f"one ramp curve launched K3 {k3.LAUNCHES} times")
+    if k3_launches() != calls(1):
+        raise RuntimeError(f"one ramp curve launched K3 {k3_launches()} times")
     m_lo = curve(log10_E0=le + a * math.log10(t_start / t_end))
     m_hi = curve(log10_E0=le)
     t_sec = t.cpu().numpy() * 86400.0
@@ -1981,15 +1974,14 @@ def posterior_config3(np, torch):
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch_parity_config3 as parity
 
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
+    from nmma_tpu_torch.ops import grb_kernel
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_config3_") as tmp:
         analysis = parity.config3_analysis(tmp, device=DEVICE)
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-            grb_kernel.LAUNCHES = 0
+        reset_launches()
         result, post, seconds = parity.run(analysis)
-        launches = (grb_kernel.LAUNCHES, svd_kernel.LAUNCHES,
-                    me2017_kernel.LAUNCHES)
+        launches = (k3_launches(), k1_launches(),
+                    k2_launches())
         bands_launches = lc_bands(
             np, torch, "TrPi2018", analysis, result, grb_kernel, "eats_flux",
             grb_kernel.eats_flux_plain, (0, 0, 1), tmp, faint=FAINT_MAG)
@@ -2024,7 +2016,6 @@ def mcmc_path(np, torch, nested):
     R-hat, and JS per parameter against the [cli] run's nested posterior
     ``nested``."""
     from nmma_tpu_torch.cli import lightcurve_analysis
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
     from nmma_tpu_torch.post_processing import posterior_js_divergences
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mcmc_") as tmp:
@@ -2033,13 +2024,12 @@ def mcmc_path(np, torch, nested):
                  "--mcmc-sweeps", str(MCMC_SWEEPS), "--mcmc-temps",
                  str(MCMC_TEMPS)]
         t0 = time.time()
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-            grb_kernel.LAUNCHES = 0
+        reset_launches()
         analysis = lightcurve_analysis.main([config_path, *flags])
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
-                    grb_kernel.LAUNCHES)
+        launches = (k1_launches(), k2_launches(),
+                    k3_launches())
         res = analysis.mcmc_result
         # the injection's light curve, the initial walkers, two half-sweeps,
         # the best-fit report
@@ -2202,7 +2192,6 @@ def lbol_path(np, torch):
     an injection, nested sampling to convergence: finite logZ and the
     injection inside the 90% interval of each sampled parameter."""
     from nmma_tpu_torch.cli.lightcurve_analysis import lbol_main
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
 
     phase, lbol, lbol_err = arnett_lbol(np, torch, "Arnett",
                                         ARNETT_INJECTION)
@@ -2214,16 +2203,15 @@ def lbol_path(np, torch):
         with open(prior, "w") as f:
             f.write(ARNETT_PRIOR_TEXT)
         t0 = time.time()
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = \
-            grb_kernel.LAUNCHES = 0
+        reset_launches()
         result = lbol_main(["--model", "Arnett", "--prior", prior,
                             "--light-curve-data", csv, "--nlive", "256",
                             "--dlogz", "0.1", "--outdir", tmp,
                             "--label", "lbol"])
         torch.cuda.synchronize()
         seconds = time.time() - t0
-        launches = (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES,
-                    grb_kernel.LAUNCHES)
+        launches = (k1_launches(), k2_launches(),
+                    k3_launches())
         post = np.load(os.path.join(tmp, "lbol_result.npz"))
         intervals = {k: np.quantile(post[f"posterior_{k}"], [0.05, 0.95])
                      for k in ("tau_m", "log10_mni")}
@@ -2243,15 +2231,42 @@ def lbol_path(np, torch):
                            f"{outside}")
 
 
+def k1_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K1_LAUNCHES)
+
+
+def k2_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K2_LAUNCHES)
+
+
+def k3_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K3_LAUNCHES)
+
+
+def collectives():
+    """The split likelihood's collectives since they were last reset."""
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.MESH_COLLECTIVES)
+
+
 def kernel_launches():
     """(K1, K2, K3) launch counts since the last reset_launches()."""
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
-    return (svd_kernel.LAUNCHES, me2017_kernel.LAUNCHES, grb_kernel.LAUNCHES)
+    return (k1_launches(), k2_launches(), k3_launches())
+
+
+def reset_counts(*names):
+    """Set the counters of nmma_tpu_torch.tracing named "k1", "k2", "k3"
+    (kernel launches) or "mesh" (collectives) to 0."""
+    from nmma_tpu_torch import tracing
+    tracing.reset(*(tracing.MESH_COLLECTIVES if n == "mesh"
+                    else f"kernel.{n}.launches" for n in names))
 
 
 def reset_launches():
-    from nmma_tpu_torch.ops import grb_kernel, me2017_kernel, svd_kernel
-    svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = grb_kernel.LAUNCHES = 0
+    reset_counts("k1", "k2", "k3")
 
 
 def gw_logl_gate(torch, got, want, data_power):
@@ -2754,9 +2769,9 @@ def k1_sparse(np, torch, gen):
     for n_f, weights in ((svd.w1.shape[0], full), (len(JOINT_FILTERS), two)):
         for b in (1, 128, BATCH + 7):
             x = torch.rand((b, p), generator=gen, device=DEVICE)
-            before = svd_kernel.LAUNCHES
+            before = k1_launches()
             got = svd_kernel.svd_surrogate_mags(x, *weights)
-            launched = svd_kernel.LAUNCHES - before
+            launched = k1_launches() - before
             want = svd_kernel.svd_surrogate_mags_plain(x, *weights)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -2790,7 +2805,7 @@ def k1_sparse(np, torch, gen):
                        f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
                        f"{tag}_bound_by": bound_by})
     # a P outside the kernels' range: refused before any launch
-    before = svd_kernel.LAUNCHES
+    before = k1_launches()
     w1_17 = torch.zeros((2, 17, h), device=DEVICE)
     try:
         svd_kernel.svd_surrogate_mags(
@@ -2799,7 +2814,7 @@ def k1_sparse(np, torch, gen):
         refused = str(err)
     else:
         raise RuntimeError("K1 took P=17")
-    if svd_kernel.LAUNCHES != before:
+    if k1_launches() != before:
         raise RuntimeError("K1 launched for P=17")
     from nmma_tpu_torch import _kernels
     for entry, summary in ptxas_entries(
@@ -5365,7 +5380,6 @@ def mesh_run(torch, analysis, cfg, mesh, device=None):
     ``analysis``, split over ``mesh`` when it is given."""
     from nmma_tpu_torch.inference import NestedSampler
     from nmma_tpu_torch.ops import svd_kernel
-    from nmma_tpu_torch.parallel import mesh as M
 
     rows, kernel = set(), svd_kernel.svd_surrogate_mags
 
@@ -5373,7 +5387,7 @@ def mesh_run(torch, analysis, cfg, mesh, device=None):
         rows.add(x.shape[0])
         return kernel(x, *weights)
 
-    svd_kernel.LAUNCHES = M.COLLECTIVES = 0
+    reset_counts("k1", "mesh")
     svd_kernel.svd_surrogate_mags = counted
     t0 = time.time()
     try:
@@ -5383,7 +5397,7 @@ def mesh_run(torch, analysis, cfg, mesh, device=None):
         torch.cuda.synchronize()
     finally:
         svd_kernel.svd_surrogate_mags = kernel
-    return (result, svd_kernel.LAUNCHES, M.COLLECTIVES, time.time() - t0,
+    return (result, k1_launches(), collectives(), time.time() - t0,
             sorted(rows))
 
 
@@ -5628,7 +5642,7 @@ def main() -> int:
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
     from nmma_tpu_torch.inference import NestedSamplerConfig
     from nmma_tpu_torch.models import SVDModelData, make_svd_source_model
-    from nmma_tpu_torch.ops import me2017_kernel, svd_kernel
+    from nmma_tpu_torch.ops import svd_kernel
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -5712,13 +5726,13 @@ def main() -> int:
                                         max_iter=40, max_seconds=90.0))
         analysis = EMAnalysis(cfg, device=DEVICE)
         u = analysis.priors.sample_units(gen, BATCH)
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = 0
+        reset_counts("k1", "k2")
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        logl_launches = svd_kernel.LAUNCHES
-        if logl_launches != 1 or me2017_kernel.LAUNCHES != 0:
+        logl_launches = k1_launches()
+        if logl_launches != 1 or k2_launches() != 0:
             raise RuntimeError(f"batched_logl launched K1 {logl_launches} "
-                               f"times and K2 {me2017_kernel.LAUNCHES} times, "
+                               f"times and K2 {k2_launches()} times, "
                                "not once and never")
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
             raise RuntimeError(f"bad batched_logl output {logl.shape}")
@@ -5769,10 +5783,10 @@ def main() -> int:
 
         # 5. nested sampler through EMAnalysis.run
         t0 = time.time()
-        svd_kernel.LAUNCHES = me2017_kernel.LAUNCHES = 0
+        reset_counts("k1", "k2")
         result = analysis.run(verbose=False)
         torch.cuda.synchronize()
-        launches = svd_kernel.LAUNCHES
+        launches = k1_launches()
         seconds = time.time() - t0
         if not math.isfinite(result.logz):
             raise RuntimeError(f"logZ not finite: {result.logz}")
@@ -5781,9 +5795,9 @@ def main() -> int:
         if launches != expected or launches <= 0:
             raise RuntimeError(f"the sampler launched K1 {launches} times, "
                                f"expected {expected}")
-        if me2017_kernel.LAUNCHES != 0:
+        if k2_launches() != 0:
             raise RuntimeError(f"the Bu2019lm sampler launched K2 "
-                               f"{me2017_kernel.LAUNCHES} times")
+                               f"{k2_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
             if not os.path.exists(os.path.join(cfg.outdir,

@@ -17,7 +17,7 @@ from dataclasses import asdict, dataclass, field
 import numpy as np
 import torch
 
-from . import __version__, resolve_device
+from . import __version__, resolve_device, tracing
 from .inference import (EnsembleMCMC, EnsembleMCMCConfig, NestedSampler,
                         NestedSamplerConfig)
 from .io import (cut_data_to_time_range, load_em_observations,
@@ -117,19 +117,27 @@ class EMAnalysis:
             detection_limit=cfg.detection_limit)
 
     def _unit_logl(self, u):
-        params = self.priors.transform(u)
+        with tracing.span("priors.transform"):
+            params = self.priors.transform(u)
         logl = self.likelihood.log_likelihood(params)
-        constraint = self.priors.constraint_log_prob(params)
+        with tracing.span("priors.constraint"):
+            constraint = self.priors.constraint_log_prob(params)
         return torch.where(torch.isfinite(constraint), logl, -1e30)
+
+    def _split_logl(self, u):
+        with tracing.span("analysis.split", batch=u):
+            return self._unit_logl(u)
 
     @torch.no_grad()
     def batched_logl(self, u_batch):
         """Unit-cube batch ``[B, ndim]`` -> log-likelihoods ``[B]``."""
-        u = torch.as_tensor(u_batch, dtype=torch.float32, device=self.device)
-        if u.shape[0] <= self.MAX_BATCH:
-            return self._unit_logl(u)
-        return torch.cat([self._unit_logl(c)
-                          for c in u.split(self.MAX_BATCH)])
+        with tracing.span(tracing.LOGL_CALL, batch=u_batch):
+            u = torch.as_tensor(u_batch, dtype=torch.float32,
+                                device=self.device)
+            if u.shape[0] <= self.MAX_BATCH:
+                return self._unit_logl(u)
+            return torch.cat([self._split_logl(c)
+                              for c in u.split(self.MAX_BATCH)])
 
     # -- sampling -----------------------------------------------------------
     def checkpoint_path(self):

@@ -37,7 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..parallel.mesh import agree, check_divides, shard_logl
 
 NEG_INF = -1e30
@@ -170,10 +170,11 @@ class NestedSampler:
         cfg = self.config
         n_k = cfg.n_delete
         # live-set preconditioner: Cholesky of the unit-cube covariance
-        centred = u_live - u_live.mean(dim=0)
-        cov = centred.T @ centred / u_live.shape[0] \
-            + 1e-10 * torch.eye(self.ndim, device=self.device)
-        chol = torch.linalg.cholesky_ex(cov).L     # no host sync on info
+        with tracing.span("ns.cholesky"):
+            centred = u_live - u_live.mean(dim=0)
+            cov = centred.T @ centred / u_live.shape[0] \
+                + 1e-10 * torch.eye(self.ndim, device=self.device)
+            chol = torch.linalg.cholesky_ex(cov).L  # no host sync on info
 
         u = u_live[start_idx]                      # [K, ndim]
         logl = logl_live[start_idx]                # [K]
@@ -192,16 +193,17 @@ class NestedSampler:
 
         acc = torch.zeros((), device=self.device)
         for _ in range(cfg.walks):
-            z = torch.randn((n_k, self.ndim), generator=gen,
-                            device=self.device)
-            prop = u + scale * step_norm * (z @ chol.T)
-            in_cube = torch.all((prop > 0.0) & (prop < 1.0), dim=1)
-            prop = torch.clamp(prop, 1e-7, 1.0 - 1e-7)
-            logl_prop = self.logl_fn(prop)
-            ok = in_cube & (logl_prop > thresh_eff)
-            u = torch.where(ok[:, None], prop, u)
-            logl = torch.where(ok, logl_prop, logl)
-            acc = acc + ok.sum()
+            with tracing.span("ns.walk_step"):
+                z = torch.randn((n_k, self.ndim), generator=gen,
+                                device=self.device)
+                prop = u + scale * step_norm * (z @ chol.T)
+                in_cube = torch.all((prop > 0.0) & (prop < 1.0), dim=1)
+                prop = torch.clamp(prop, 1e-7, 1.0 - 1e-7)
+                logl_prop = self.logl_fn(prop)
+                ok = in_cube & (logl_prop > thresh_eff)
+                u = torch.where(ok[:, None], prop, u)
+                logl = torch.where(ok, logl_prop, logl)
+                acc = acc + ok.sum()
         return u, logl, acc, n_k * cfg.walks
 
     def _iteration(self, st: NSState, gen):
@@ -210,44 +212,46 @@ class NestedSampler:
         cfg = self.config
         n_k = cfg.n_delete
 
-        # 1. worst K points, ascending logL
-        neg_topk, dead_idx = torch.topk(-st.logl_live, n_k)
-        dead_u = st.u_live[dead_idx]
-        dead_logl = -neg_topk
-        threshold = dead_logl[-1]
+        with tracing.span("ns.select"):
+            # 1. worst K points, ascending logL
+            neg_topk, dead_idx = torch.topk(-st.logl_live, n_k)
+            dead_u = st.u_live[dead_idx]
+            dead_logl = -neg_topk
+            threshold = dead_logl[-1]
 
-        # 2. volume bookkeeping (sequential shrinkage)
-        log_x_after = st.log_x - torch.cumsum(self._decr, 0)
-        log_x_prev = torch.cat([st.log_x[None], log_x_after[:-1]])
-        log_dvol = log_x_prev + torch.log(-torch.expm1(-self._decr))
-        logw = dead_logl + log_dvol
+            # 2. volume bookkeeping (sequential shrinkage)
+            log_x_after = st.log_x - torch.cumsum(self._decr, 0)
+            log_x_prev = torch.cat([st.log_x[None], log_x_after[:-1]])
+            log_dvol = log_x_prev + torch.log(-torch.expm1(-self._decr))
+            logw = dead_logl + log_dvol
 
-        logz_new = torch.logaddexp(st.logz, torch.logsumexp(logw, 0))
-        lzterm = torch.exp(logw - logz_new) * dead_logl
-        h_new = torch.where(torch.isfinite(lzterm), lzterm, 0.0).sum() \
-            + torch.exp(st.logz - logz_new) * (st.h_info + st.logz) \
-            - logz_new
-        h_new = torch.where(torch.isfinite(h_new), h_new, st.h_info)
-        # dynesty's variance recursion, per-dead-point volume decrement,
-        # skipping the transients while dead points still carry -1e30
-        # (JAX package nested.py:258-277)
-        dh = h_new - st.h_info
-        dlnx = self._decr.sum() / n_k
-        sane = torch.isfinite(dh) & (dh.abs() < 1e6) & \
-            (dead_logl[0] > NEG_INF * 0.99)
-        logzvar_new = st.logzvar + torch.where(sane, 2.0 * dh * dlnx, 0.0)
+            logz_new = torch.logaddexp(st.logz, torch.logsumexp(logw, 0))
+            lzterm = torch.exp(logw - logz_new) * dead_logl
+            h_new = torch.where(torch.isfinite(lzterm), lzterm, 0.0).sum() \
+                + torch.exp(st.logz - logz_new) * (st.h_info + st.logz) \
+                - logz_new
+            h_new = torch.where(torch.isfinite(h_new), h_new, st.h_info)
+            # dynesty's variance recursion, per-dead-point volume decrement,
+            # skipping the transients while dead points still carry -1e30
+            # (JAX package nested.py:258-277)
+            dh = h_new - st.h_info
+            dlnx = self._decr.sum() / n_k
+            sane = torch.isfinite(dh) & (dh.abs() < 1e6) & \
+                (dead_logl[0] > NEG_INF * 0.99)
+            logzvar_new = st.logzvar + torch.where(sane, 2.0 * dh * dlnx, 0.0)
 
-        # 3. chain starts: uniform draws among survivors, re-drawn twice on
-        # collision with a dead point, the best point as the fallback
-        draws = torch.randint(0, cfg.nlive, (3, n_k), generator=gen,
-                              device=self.device)
-        alive = st.logl_live > threshold
-        alive = torch.where(torch.any(alive), alive,
-                            st.logl_live >= threshold)
-        start = torch.argmax(st.logl_live).expand(n_k)
-        for attempt in (2, 1, 0):
-            cand = draws[attempt]
-            start = torch.where(alive[cand], cand, start)
+            # 3. chain starts: uniform draws among survivors, re-drawn twice on
+            # collision with a dead point, the best point as the fallback
+            draws = torch.randint(0, cfg.nlive, (3, n_k), generator=gen,
+                                  device=self.device)
+            alive = st.logl_live > threshold
+            alive = torch.where(torch.any(alive), alive,
+                                st.logl_live >= threshold)
+            start = torch.argmax(st.logl_live).expand(n_k)
+            for attempt in (2, 1, 0):
+                cand = draws[attempt]
+                start = torch.where(alive[cand], cand, start)
+
         u_new, logl_new, acc, n_prop = self._replace_batch(
             gen, st.u_live, st.logl_live, threshold, st.scale, start)
 
@@ -273,13 +277,16 @@ class NestedSampler:
         cfg = self.config
         chunk = ([], [], [], [])
         for _ in range(min(cfg.chunk_size, cfg.max_iter - st.it)):
-            for parts, new in zip(chunk, self._iteration(st, gen)):
+            with tracing.span("ns.iteration", iteration=st.it):
+                dead = self._iteration(st, gen)
+            for parts, new in zip(chunk, dead):
                 parts.append(new)
         return chunk
 
     def _traced_chunk(self, st: NSState, gen):
         """``_run_chunk`` under torch.profiler, its Chrome trace written
         into ``profile_dir`` as ``nested_sampler_it{first iteration}.json``
+        with the program's spans of the chunk beside the profiler's records
         (rank 0 only; the other ranks run the chunk untraced)."""
         if not self._lead:
             return self._run_chunk(st, gen)
@@ -287,14 +294,17 @@ class NestedSampler:
 
         cuda = self.device.type == "cuda"
         first = st.it
+        mark = len(tracing.records())
         with profile(activities=[ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if cuda else [])) as prof:
             chunk = self._run_chunk(st, gen)
             if cuda:
                 torch.cuda.synchronize(self.device)
         os.makedirs(self.config.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            self.config.profile_dir, f"nested_sampler_it{first}.json"))
+        path = os.path.join(self.config.profile_dir,
+                            f"nested_sampler_it{first}.json")
+        prof.export_chrome_trace(path)
+        tracing.add_to_chrome_trace(path, tracing.records()[mark:])
         return chunk
 
     def run(self, verbose=True, checkpoint_path=None,
@@ -352,12 +362,13 @@ class NestedSampler:
             else:
                 chunk = self._run_chunk(st, gen)
             # one device -> host transfer per chunk
-            for parts, new in zip(dead, chunk):
-                parts.append(_host(torch.stack(new)).reshape(
-                    -1, *new[0].shape[1:]))
-            logz = float(st.logz)
-            logz_remain = float(st.logl_live.max()) + float(st.log_x)
-            dlogz = float(np.logaddexp(logz, logz_remain) - logz)
+            with tracing.span("ns.chunk_read", iteration=st.it - 1):
+                for parts, new in zip(dead, chunk):
+                    parts.append(_host(torch.stack(new)).reshape(
+                        -1, *new[0].shape[1:]))
+                logz = float(st.logz)
+                logz_remain = float(st.logl_live.max()) + float(st.log_x)
+                dlogz = float(np.logaddexp(logz, logz_remain) - logz)
             elapsed = time.time() - t0
             # the ranks' own stop conditions, agreed on by every rank
             stop_signal, over_time = agree(

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..filters import resolve_filter
 from ..models.base import DetectorLightCurveModel
 from .systematics import SystematicsModel
@@ -203,33 +203,37 @@ class EMLikelihood:
 
     def log_likelihood(self, parameters):
         """``[B]`` log-likelihoods for a parameter dict ``{name: [B]}``."""
-        obs_times_model, model_mags = self.model(parameters)
-        est = self.expected_mags(obs_times_model, model_mags)   # [B, F, N]
-        sigma_sys = self.systematics(parameters, self.data.times)
+        with tracing.span("likelihood.log_likelihood"):
+            obs_times_model, model_mags = self.model(parameters)
+            with tracing.span("likelihood.expected_mags"):
+                est = self.expected_mags(obs_times_model,
+                                         model_mags)          # [B, F, N]
+            sigma_sys = self.systematics(parameters, self.data.times)
 
-        d = self.data
-        is_det = d.valid & torch.isfinite(d.sigmas)
-        is_lim = d.valid & ~torch.isfinite(d.sigmas)
+            d = self.data
+            is_det = d.valid & torch.isfinite(d.sigmas)
+            is_lim = d.valid & ~torch.isfinite(d.sigmas)
 
-        total_sigma = torch.sqrt(d.sigmas ** 2 + sigma_sys ** 2)
-        safe_sigma = torch.where(is_det, total_sigma, 1.0)
-        safe_est = torch.where(torch.isfinite(est), est, 1e30)
+            total_sigma = torch.sqrt(d.sigmas ** 2 + sigma_sys ** 2)
+            safe_sigma = torch.where(is_det, total_sigma, 1.0)
+            safe_est = torch.where(torch.isfinite(est), est, 1e30)
 
-        chi2_terms = truncated_gaussian_logpdf(
-            d.mags, safe_est, safe_sigma, self.detection_limit)
-        chi2 = torch.where(is_det, chi2_terms, 0.0).sum(dim=(1, 2))
-        sf_terms = gaussian_logsf(d.mags, safe_est,
-                                  torch.clamp(sigma_sys, min=1e-10))
-        logsf = torch.where(is_lim, sf_terms, 0.0).sum(dim=(1, 2))
+            chi2_terms = truncated_gaussian_logpdf(
+                d.mags, safe_est, safe_sigma, self.detection_limit)
+            chi2 = torch.where(is_det, chi2_terms, 0.0).sum(dim=(1, 2))
+            sf_terms = gaussian_logsf(d.mags, safe_est,
+                                      torch.clamp(sigma_sys, min=1e-10))
+            logsf = torch.where(is_lim, sf_terms, 0.0).sum(dim=(1, 2))
 
-        logl = chi2 + logsf
-        # model completely invalid (all-inf in any used band) => sentinel
-        any_finite_per_band = torch.any(torch.isfinite(est) & d.valid, dim=2)
-        used_band = torch.any(d.valid, dim=1)
-        ok = torch.all(any_finite_per_band | ~used_band, dim=1)
-        logl = torch.where(ok, logl, _NEG_INF)
-        return torch.where(torch.isnan(logl), _NEG_INF,
-                           torch.clamp(logl, min=_NEG_INF))
+            logl = chi2 + logsf
+            # model completely invalid (all-inf in any used band) => sentinel
+            any_finite_per_band = torch.any(torch.isfinite(est) & d.valid,
+                                            dim=2)
+            used_band = torch.any(d.valid, dim=1)
+            ok = torch.all(any_finite_per_band | ~used_band, dim=1)
+            logl = torch.where(ok, logl, _NEG_INF)
+            return torch.where(torch.isnan(logl), _NEG_INF,
+                               torch.clamp(logl, min=_NEG_INF))
 
     def __call__(self, parameters):
         return self.log_likelihood(parameters)

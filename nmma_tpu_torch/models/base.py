@@ -24,7 +24,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..cosmology import distance_modulus, get_cosmology
 from ..filters import (filters_to_frequencies, filters_to_quadrature,
                        resolve_filter)
@@ -209,44 +209,48 @@ class DetectorLightCurveModel:
     def __call__(self, parameters):
         """params {name: [B]} -> (observable_times [B, T], mags [B, F, T]);
         a bolometric model gives L / 1e40 erg/s [B, T] in place of mags."""
-        t = self.sample_times
-        p = self.prepare_parameters(parameters)
-        z = p["redshift"]
-        p["distance_modulus"] = distance_modulus(p["luminosity_distance"])
-        nu_host = self.nu_0s[None, :] * (1.0 + z)[:, None]
-        extra = dict(self.model_kwargs)
-        if self.source.banded:
-            extra["nu_nodes"] = self.nu_nodes[None] * (1.0 + z)[:, None, None]
-            extra["nu_weights"] = self.nu_weights
-        if self.source.needs_filters:
-            extra["filters"] = self.filters
-        mags = self.source.mags_fn(p, t, nu_host, **extra)   # [B, F_src, T]
+        with tracing.span("model.detector"):
+            t = self.sample_times
+            p = self.prepare_parameters(parameters)
+            z = p["redshift"]
+            p["distance_modulus"] = distance_modulus(p["luminosity_distance"])
+            nu_host = self.nu_0s[None, :] * (1.0 + z)[:, None]
+            extra = dict(self.model_kwargs)
+            if self.source.banded:
+                extra["nu_nodes"] = \
+                    self.nu_nodes[None] * (1.0 + z)[:, None, None]
+                extra["nu_weights"] = self.nu_weights
+            if self.source.needs_filters:
+                extra["filters"] = self.filters
+            with tracing.span("model.source"):
+                mags = self.source.mags_fn(p, t, nu_host,
+                                           **extra)          # [B, F_src, T]
 
-        if self._rows is not None:
-            mags = mags[:, self._rows]
-            if self._untrained:
-                mags[:, self._untrained] = math.inf
+            if self._rows is not None:
+                mags = mags[:, self._rows]
+                if self._untrained:
+                    mags[:, self._untrained] = math.inf
 
-        observable_times = t[None, :] * (1.0 + z)[:, None] \
-            + p["timeshift"][:, None]
-        if self.source.bolometric:
-            # energy and time-bin correction (nmma/em/model.py:526-529)
-            return observable_times, mags / ((1.0 + z) ** 2)[:, None]
+            observable_times = t[None, :] * (1.0 + z)[:, None] \
+                + p["timeshift"][:, None]
+            if self.source.bolometric:
+                # energy and time-bin correction (nmma/em/model.py:526-529)
+                return observable_times, mags / ((1.0 + z) ** 2)[:, None]
 
-        if self.extinction_law == "G23_MW":
-            ext_mag = band_extinction_mags_mw(
-                self.nu_nodes, self.nu_weights, p["Ebv"])       # [B, F]
-        else:
-            ext_mag = band_extinction_mags_p92_smc(
-                self.nu_nodes, self.nu_weights, p["Ebv"], z)
-        redshift_correction = -2.5 * torch.log10(1.0 + z)
-        dist_corr = (0.0 if self.source.apparent_amplitude
-                     else p["distance_modulus"][:, None, None])
-        apparent = (mags + ext_mag[:, :, None] + dist_corr
-                    + redshift_correction[:, None, None])
+            if self.extinction_law == "G23_MW":
+                ext_mag = band_extinction_mags_mw(
+                    self.nu_nodes, self.nu_weights, p["Ebv"])       # [B, F]
+            else:
+                ext_mag = band_extinction_mags_p92_smc(
+                    self.nu_nodes, self.nu_weights, p["Ebv"], z)
+            redshift_correction = -2.5 * torch.log10(1.0 + z)
+            dist_corr = (0.0 if self.source.apparent_amplitude
+                         else p["distance_modulus"][:, None, None])
+            apparent = (mags + ext_mag[:, :, None] + dist_corr
+                        + redshift_correction[:, None, None])
 
-        # rows with <2 finite samples are unusable -> all-inf
-        # (nmma/em/model.py:389-396)
-        finite_count = torch.isfinite(apparent).sum(dim=2, keepdim=True)
-        apparent = torch.where(finite_count >= 2, apparent, math.inf)
-        return observable_times, apparent
+            # rows with <2 finite samples are unusable -> all-inf
+            # (nmma/em/model.py:389-396)
+            finite_count = torch.isfinite(apparent).sum(dim=2, keepdim=True)
+            apparent = torch.where(finite_count >= 2, apparent, math.inf)
+            return observable_times, apparent

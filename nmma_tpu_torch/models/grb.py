@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import c_cgs, seconds_a_day
 from ..ops import grb_kernel
 from ..ops.interp import masked_interp_sorted_fill
@@ -313,9 +314,10 @@ def grb_afterglow_flux_density(t_obs_day, nu_obs, params,
 
     Arguments as :func:`grb_stage1`; the equal-arrival-time surface runs
     through K3, then the rings are summed with their solid angles."""
-    operands, d_cos, inv_dl26 = grb_stage1(
-        t_obs_day, nu_obs, params, jet_type=jet_type, n_theta=n_theta,
-        n_phi=n_phi, n_r=n_r, spread=spread, trumpet=trumpet)
+    with tracing.span("grb.stage1"):
+        operands, d_cos, inv_dl26 = grb_stage1(
+            t_obs_day, nu_obs, params, jet_type=jet_type, n_theta=n_theta,
+            n_phi=n_phi, n_r=n_r, spread=spread, trumpet=trumpet)
     flux_elems = grb_kernel.eats_flux(*operands)              # [B, Th, F, T]
     # each phi node covers dOmega = d_cos 2 pi / n_phi (weights normalised
     # to that convention)

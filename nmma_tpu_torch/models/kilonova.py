@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import (AB_ZP_CGS, abs_mag_dist_factor, c_cgs, h, kb,
                          msun_cgs, seconds_a_day, sigSB)
 from ..ops.interp import interp_rows, masked_interp_linear_sorted
@@ -46,15 +47,16 @@ def _me2017_photometry(ltot40, r_photo, t_days, nu_host, nu_nodes=None,
                        nu_weights=None):
     """Effective temperature of the photosphere, filled over the grid where
     it is undefined, then blackbody magnitudes [B, F, T]."""
-    r_ok = r_photo > 0.0
-    r_safe = torch.where(r_ok, r_photo, 1.0)
-    q = ltot40.abs() * (_L_SCALE * 1e-20) / (4.0 * math.pi * sigSB) / (
-        (r_safe * 1e-10) ** 2)
-    t_obs = torch.where(r_ok & (q > 0.0), q ** 0.25, math.nan)
-    t_obs = masked_interp_linear_sorted(t_days, t_days, t_obs)
-    inv_t = torch.where(torch.isfinite(t_obs) & (t_obs > 0.0), 1.0 / t_obs,
-                        math.inf)
-    return _bb_mags(nu_host, inv_t, r_photo, nu_nodes, nu_weights)
+    with tracing.span("me2017.photometry"):
+        r_ok = r_photo > 0.0
+        r_safe = torch.where(r_ok, r_photo, 1.0)
+        q = ltot40.abs() * (_L_SCALE * 1e-20) / (4.0 * math.pi * sigSB) / (
+            (r_safe * 1e-10) ** 2)
+        t_obs = torch.where(r_ok & (q > 0.0), q ** 0.25, math.nan)
+        t_obs = masked_interp_linear_sorted(t_days, t_days, t_obs)
+        inv_t = torch.where(torch.isfinite(t_obs) & (t_obs > 0.0), 1.0 / t_obs,
+                            math.inf)
+        return _bb_mags(nu_host, inv_t, r_photo, nu_nodes, nu_weights)
 
 
 def me2017_mags(params, t_days, nu_host, nu_nodes=None, nu_weights=None):

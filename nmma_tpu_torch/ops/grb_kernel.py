@@ -35,11 +35,8 @@ import math
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, tracing
 from ..constants import c_cgs
-
-# launches of the CUDA kernel since the count was last set to 0
-LAUNCHES = 0
 
 N_TRACKS = 5
 N_SCAL = 8
@@ -283,7 +280,6 @@ def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
     of ``eats_flux_pallas`` with a per-sample ``nu_obs``; ``jax.vmap`` of
     that function over a per-row time gives it the per-row queries.
     """
-    global LAUNCHES
     ops = (t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs)
     _check_operands(*ops)
     if t_delay.device.type == "cpu":
@@ -304,11 +300,12 @@ def eats_flux(t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs):
                       device=t_delay.device)
     if n_b == 0:
         return out
-    with torch.cuda.device(t_delay.device):
+    with tracing.span("kernel.k3", batch=t_delay), \
+            torch.cuda.device(t_delay.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nmma_grb_eats(
             *(t.data_ptr() for t in ops), out.data_ptr(), n_b, n_th, n_r,
             n_t, n_phi, n_f, q_stride, t_delay.device.index, stream)
     _kernels.check(lib, code, "grb_eats launch")
-    LAUNCHES += 1
+    tracing.count(tracing.K3_LAUNCHES)
     return out

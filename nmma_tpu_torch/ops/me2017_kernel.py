@@ -27,11 +27,8 @@ import math
 
 import torch
 
-from .. import _kernels
+from .. import _kernels, tracing
 from ..constants import LN10, c_cgs, msun_cgs, seconds_a_day
-
-# launches of the CUDA kernel since the count was last set to 0
-LAUNCHES = 0
 
 N_SHELLS = 299          # mass shells stepped (the reference's 300-point grid)
 _MPREC = N_SHELLS + 1
@@ -175,7 +172,6 @@ def _check_operands(shells, per_sample, per_step):
 def me2017_dynamics_from_operands(shells, per_sample, per_step):
     """``(ltot40 [B, T], r_photo [B, T])`` from :func:`me2017_operands`:
     the CUDA kernel for CUDA tensors, the plain loop for CPU tensors."""
-    global LAUNCHES
     _check_operands(shells, per_sample, per_step)
     if shells.device.type == "cpu":
         return me2017_dynamics_plain(shells, per_sample, per_step)
@@ -187,14 +183,15 @@ def me2017_dynamics_from_operands(shells, per_sample, per_step):
     if n_b == 0:
         return ltot, r_photo
     lib = _kernels.load("me2017_dynamics")
-    with torch.cuda.device(shells.device):
+    with tracing.span("kernel.k2", batch=ltot), \
+            torch.cuda.device(shells.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nmma_me2017_dynamics(
             shells.data_ptr(), per_sample.data_ptr(), per_step.data_ptr(),
             ltot.data_ptr(), r_photo.data_ptr(), n_b, N_SHELLS, n_t,
             shells.device.index, stream)
     _kernels.check(lib, code, "me2017_dynamics launch")
-    LAUNCHES += 1
+    tracing.count(tracing.K2_LAUNCHES)
     return ltot, r_photo
 
 

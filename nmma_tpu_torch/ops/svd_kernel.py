@@ -19,10 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _kernels
-
-# launches of the CUDA kernel since the count was last set to 0
-LAUNCHES = 0
+from .. import _kernels, tracing
 
 # (P, C) of the specialised instantiations: the production Bu2019lm (4, 10)
 # and the sparse Bu2019lm of the joint path (2, 10); every other P up to
@@ -82,7 +79,6 @@ def svd_surrogate_mags(x, w1, b1, w2c, b2, va_q, off_q):
     x [B, P] normalised inputs; w1 [F, P, H]; b1 [F, H]; w2c [F, H, C];
     b2 [F, C]; va_q [F, C, Q]; off_q [F, Q]; all float32 on one device.
     """
-    global LAUNCHES
     _check_operands(x, w1, b1, w2c, b2, va_q, off_q)
     if x.device.type == "cpu":
         return svd_surrogate_mags_plain(x, w1, b1, w2c, b2, va_q, off_q)
@@ -96,12 +92,12 @@ def svd_surrogate_mags(x, w1, b1, w2c, b2, va_q, off_q):
     if b == 0:
         return out
     lib = _kernels.load("svd_mlp")
-    with torch.cuda.device(x.device):
+    with tracing.span("kernel.k1", batch=x), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nmma_svd_mlp_mags(
             *[t.data_ptr() for t in (x, w1, b1, w2c, b2, va_q, off_q)],
             out.data_ptr(),
             b, p, h, c, q, n_f, x.device.index, stream)
     _kernels.check(lib, code, "svd_mlp_mags launch")
-    LAUNCHES += 1
+    tracing.count(tracing.K1_LAUNCHES)
     return out

@@ -38,11 +38,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from .. import resolve_device
-
-# likelihood collectives (one per shard_logl call) since the count was last
-# set to 0; the stop agreement of the sampler's run loop is not counted
-COLLECTIVES = 0
+from .. import resolve_device, tracing
 
 # a lost rank raises at the next collective after this long instead of
 # hanging
@@ -144,15 +140,15 @@ def shard_logl(logl_fn, mesh):
         return logl_fn
 
     def sharded(u):
-        global COLLECTIVES
         check_divides("batch", u.shape[0], mesh)
         rows = u.shape[0] // mesh.size
         lo = mesh.rank * rows
         part = logl_fn(u[lo:lo + rows])
         out = part.new_zeros((u.shape[0],))
         out[lo:lo + rows] = part
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
-        COLLECTIVES += 1
+        with tracing.span("mesh.all_reduce", batch=out):
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        tracing.count(tracing.MESH_COLLECTIVES)
         return out
 
     return sharded

@@ -154,12 +154,12 @@ def main(argv=None):
         print("torch_parity_config3: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from nmma_tpu_torch.ops import grb_kernel
+    from nmma_tpu_torch import tracing
     with tempfile.TemporaryDirectory(prefix="parity_config3_") as tmp:
         analysis = config3_analysis(tmp)
-        grb_kernel.LAUNCHES = 0
+        tracing.reset(tracing.K3_LAUNCHES)
         result, post, seconds = run(analysis, verbose=True)
-        launches = grb_kernel.LAUNCHES
+        launches = tracing.counter(tracing.K3_LAUNCHES)
     name = torch.cuda.get_device_name(0)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     save_posterior(out, post, result, seconds, name)

@@ -43,6 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
 
+from nmma_tpu_torch import tracing  # noqa: E402
 from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig  # noqa: E402
 from nmma_tpu_torch.inference import (NestedSampler,  # noqa: E402
                                       NestedSamplerConfig,
@@ -119,9 +120,9 @@ def worker(world, rank, root):
 
     out["shard_logl"] = M.shard_logl(ana.batched_logl, mesh)(
         torch.from_numpy(seeded_rows(ndim))).numpy()
-    M.COLLECTIVES = 0
+    tracing.reset(tracing.MESH_COLLECTIVES)
     keep("", run(cfg))
-    out["collectives"] = M.COLLECTIVES
+    out["collectives"] = tracing.counter(tracing.MESH_COLLECTIVES)
 
     if world == 2:
         # a wall-clock cap that only rank 1 crosses
