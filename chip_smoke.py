@@ -11,8 +11,9 @@ models: the Bu2019lm SVD surrogate at production width (P=4, H=2048, C=10,
 F=9, Q=150) through K1, the analytic Me2017 kilonova (299 shells, T=150,
 9 filters x 9 bandpass nodes) through K2, the TrPi2018 GRB afterglow at the
 JAX package's full resolution (48 rings x 16 phi nodes, 256 radii, stage 2
-on 128, 64 observer times, 5 filters) through K3, and Me2017 + TrPi2018
-through K2 and K3; then TrPi2018's energy ramp through K3's per-row mode,
+on 128, 64 observer times, 5 filters) through K4 (its stage 1) and K3, and
+Me2017 + TrPi2018 through K2, K4 and K3; then TrPi2018's energy ramp through
+K4's per-row times and K3's per-row mode,
 config 3's posterior against the JAX package's, the ensemble MCMC, the
 supernova, shock-cooling, spectral and bolometric paths, GW-only BNS
 inference through nmma-generation / nmma-analysis (no kernel), and joint
@@ -66,6 +67,21 @@ light-curve bands on the runs that make them (K1, K2, K3):
   8. me2017_sampler
               the same as phase 5 with the Me2017 model: K2 launches
               1 + iterations x walks, no K1 launch.
+  9a. k4      K4 (csrc/grb_dynamics.cu, TrPi2018's stage 1) against the
+              plain stage 1 on the card over the Gaussian, tophat and
+              power-law jets, spreading with and without the trumpet and
+              without spreading, no injection and an injection by
+              log10_L0, an L0 column or a constant L0, R = 256 and 128,
+              shared and per-row times (B = 257 config-3 prior draws each,
+              one K4 launch each): the operands without a sum bit for bit,
+              t_delay and the log tracks within the K4_* tolerances where
+              gamma - 1 >= 1e-2 and the tracks within the tail's bound
+              below it (with an injection, all but 1e-4 of the values),
+              K3's flux of the two within 1e-3; then
+              [k4_fault]: PERF.md section 7's fault point inside a B = 8192
+              batch, K4 against the plain stage 1 there and the logL of
+              each; then K4's device time at B = 8192 and 64, the plain
+              stage 1's, the bound and the peak memory of each;
   9. k3       K3 against its plain version on the card on stage-1 operands
               of config-3 prior draws at B = 1, 64, 257 (max relative error
               where |ref| > 1e-6 max|ref|, <= 1e-4); then the kernel's time
@@ -79,17 +95,19 @@ light-curve bands on the runs that make them (K1, K2, K3):
               and 16: within the same 1e-4, zeros in the same places, one
               launch per call;
  10. grb_logl the same as phase 7 with TrPi2018 on config-3 photometry (one
-              K3 launch, no K1 or K2 launch), with |dlogL| against the plain
+              K3 and one K4 launch, no K1 or K2 launch), with |dlogL| against
+              the plain
               K3 at B = 1024 and the profile at B = 8192 and 64 with K3's
               device time;
  11. grb_sampler
               nested sampling with config 3's nlive=512, n_delete=64,
-              walks=16, capped at 40 iterations and 90 s: K3 launches
-              1 + iterations x walks, no K1 or K2 launch, finite logZ;
+              walks=16, capped at 40 iterations and 90 s: K3 and K4
+              launches 1 + iterations x walks each, no K1 or K2 launch,
+              finite logZ;
  12. combined_logl
               Me2017 + TrPi2018 (make_combined_source_model) on synthetic
-              photometry, one batched_logl at B = 1024: one K2 and one K3
-              launch, |dlogL| against the plain K2 and K3 off near-tie live
+              photometry, one batched_logl at B = 1024: one K2, one K3 and
+              one K4 launch, |dlogL| against the plain K2 and K3 off near-tie live
               points.
  13. cli      nmma_tpu_torch.cli.lightcurve_analysis.main([config.yaml])
               in-process on the production surrogate (9 filters, Q = 150):
@@ -125,7 +143,7 @@ light-curve bands on the runs that make them (K1, K2, K3):
               (RAMP_PRIOR_TEXT): magnitudes and logL at B = 64 against the
               plain K3 (1e-3 mag below FAINT_MAG, identical inf; the logL
               gate of phase 10); batched_logl at B = 64 and 8192 with K3
-              launches equal to the chunks exactly, wall and device ms,
+              and K4 launches equal to the chunks exactly, wall and device ms,
               evals/s and peak memory; and the ramp's meaning (before
               t_start the constant-E0(Estart) curve, after the injection
               the constant-E0(Eend) one, between them inside both).
@@ -491,6 +509,45 @@ GRB_INJECTION = {"log10_E0": 51.5, "thetaCore": 0.1, "thetaWing": 0.4,
 # version on the card, a bf16 hat (the JAX default's) 3e-4 to 7e-4 against
 # the plain version on the CPU (tests/test_torch_grb.py)
 K3_TOL = 1e-4
+# K4 (TrPi2018's stage 1) against the plain stage 1 on the card. The two
+# differ only in the order of the five running sums (sequential in r in K4,
+# torch.cumsum's parallel scan in the plain version). r_grid, scal, log_q,
+# d_cos, inv_dl26 and the phi nodes hold no sum: bit for bit. t_delay and
+# the log tracks are bounded node by node by how well stage 1 is
+# conditioned there. Where gamma - 1 >= 1e-2: t_delay within K4_TDELAY_TOL
+# relative, the tracks within K4_TRACK_TOL in the log (1e-4 of the
+# quantity, K3's own tolerance). In the Newtonian tail below it, gamma - 1
+# cancels in f32 (gamma = sqrt(1 + u2) rounds to within 2^-24 of 1 + u2/2)
+# and a one-ulp change of gamma moves the field, nu_m', nu_c' and the
+# emission by up to ~2 2^-24 / (gamma - 1) in the log: there the tracks'
+# bound is K4_TRACK_TOL plus K4_TAIL_ULPS of that amplification; 1 -
+# beta_sh cancels as well, and t_delay is not bounded node by node. With an
+# energy injection the bounds hold at all but K4_ONSET_SHARE of the values:
+# where t_b crosses ts, a one-ulp change of t_b switches E_inj on or off,
+# and a ring whose E_iso sits at its 1e-12 floor changes gamma by orders of
+# magnitude there. K3's flux of the two sets of operands: K4_FLUX_TOL
+# relative, the magnitude gate of tests/test_torch_grb.py (1e-3 mag)
+K4_TDELAY_TOL = 1e-5
+K4_TRACK_TOL = 1e-4
+K4_TAIL_ULPS = 64
+K4_ONSET_SHARE = 1e-4
+K4_FLUX_TOL = 1e-3
+# stage 1's parameters a K4 comparison draws for its switches: the power
+# law's b, an energy injection log10_L0 (or L0, a column or a constant),
+# q and ts
+K4_B_RANGE = (1.5, 9.0)
+K4_LOG10_L0_RANGE = (44.0, 48.0)
+# a column of L0 in erg/s is f32 and tops out at 3.4e38
+K4_LOG10_L0_COLUMN_RANGE = (30.0, 38.0)
+K4_Q_VALUES = (0.0, 0.5, 1.0, 1.0005, 2.0)
+K4_TS_RANGE = (1e2, 1e4)
+# PERF.md §7: a proposal at the top of log10_E0 where the program and the
+# benchmark's reference disagree (both sides of one run)
+K4_FAULT_U = (0.99999988, 0.95318, 0.83112, 0.24144, 0.14920, 0.02560,
+              0.35947, 0.57345)
+# [k4] draws from a generator of its own, so the phases after it see the
+# draws they saw before it was added
+K4_SEED = 22
 # Me2017 + TrPi2018: the model and prior of BASELINE config 4
 # (scripts/bench_grb_pe.py:63-97) on synthetic photometry
 COMBINED_PRIOR_TEXT = """\
@@ -1176,10 +1233,286 @@ def roofline_ms(n_ops, n_bytes):
         "operations" if ops_s >= bytes_s else "bytes"
 
 
+def k4_errors(torch, got, want):
+    """{name: error} of K4's stage 1 (``got``) against the plain one
+    (``want``), both ``grb_stage1``'s (operands, d_cos, inv_dl26):
+    ``exact_mismatches``, the values of the operands without a sum that
+    are not bit for bit equal; ``t_delay`` relative (where |ref| > 1e-6
+    max|ref|) over the nodes with gamma - 1 >= 1e-2 (``head``), and over the
+    rest (``t_delay_tail``, not bounded); the tracks' largest absolute
+    error over the head (``tracks_head``) and over the tail as a share of
+    its bound (``tracks_tail_share``); ``over``, the share of t_delay's head
+    values and of all track values outside their bounds; the share of all
+    track values within 1e-5 relative (``tracks_rel_1e-5``) and of tail
+    nodes (``tail_nodes``). A non-finite value where the other side is
+    finite reads inf."""
+    names = ("t_delay", "log_tracks", "r_grid", "scal", "log_q", "cphi",
+             "wphi", "nu_obs", "d_cos", "inv_dl26")
+    pairs = dict(zip(names, zip(tuple(got[0]) + tuple(got[1:]),
+                                tuple(want[0]) + tuple(want[1:]))))
+    for name, (g, w) in pairs.items():
+        if g.shape != w.shape:
+            raise RuntimeError(f"K4's {name} has shape {tuple(g.shape)}, the "
+                               f"plain stage 1's {tuple(w.shape)}")
+    errs = {"exact_mismatches": float(sum(
+        int((g != w).sum()) - int((g.isnan() & w.isnan()).sum())
+        for name, (g, w) in pairs.items()
+        if name not in ("t_delay", "log_tracks")))}
+    td_g, td_w = pairs["t_delay"]
+    g, w = pairs["log_tracks"]
+    if not bool(torch.equal(torch.isfinite(td_g), torch.isfinite(td_w))) \
+            or not bool(torch.isfinite(g).all()):
+        errs.update(t_delay=math.inf, tracks_head=math.inf, over=1.0)
+        return errs
+    gm1 = torch.expm1(w[:, 0])                            # [B, Th, R']
+    head = gm1 >= 1e-2
+    scale = float(td_w.abs().max())
+    rel = (td_g - td_w).abs() / torch.clamp(td_w.abs(), min=1e-6 * scale)
+    errs["t_delay"] = float(rel[head].max()) if bool(head.any()) else 0.0
+    errs["t_delay_tail"] = float(rel[~head].max()) \
+        if bool((~head).any()) else 0.0
+    diff = (g - w).abs()                                  # [B, 5, Th, R']
+    head5 = head[:, None].expand_as(diff)
+    bound = torch.where(head5, K4_TRACK_TOL, K4_TRACK_TOL
+                        + K4_TAIL_ULPS * 2.0**-24 / gm1[:, None])
+    errs["tracks_head"] = float(diff[head5].max()) \
+        if bool(head.any()) else 0.0
+    errs["tracks_tail_share"] = float((diff / bound)[~head5].max()) \
+        if bool((~head).any()) else 0.0
+    errs["over"] = (int((rel[head] > K4_TDELAY_TOL).sum())
+                    + int((diff > bound).sum())) / (int(head.sum())
+                                                    + diff.numel())
+    errs["tracks_rel_1e-5"] = float((diff <= 1e-5 * w.abs()).float().mean())
+    errs["tail_nodes"] = float((~head).float().mean())
+    return errs
+
+
+def k4_failures(errs, injection=False):
+    """The bounds a ``k4_errors`` reading breaks, as text: every value in
+    its bound, or with an energy injection all but K4_ONSET_SHARE."""
+    bounds = {"exact_mismatches": 0.0, "over": K4_ONSET_SHARE if injection
+              else 0.0, "flux": K4_FLUX_TOL}
+    return [f"{k}={errs[k]:.3e} (bound {v:.0e})"
+            for k, v in bounds.items() if k in errs and not errs[k] <= v]
+
+
+def k4_worst(worst, errs, injection):
+    """Fold a ``k4_errors`` reading into ``worst`` (the injection cases'
+    head tracks apart)."""
+    for name, v in errs.items():
+        if name == "tracks_head" and injection:
+            name = "tracks_head_injection"
+        if name == "tracks_rel_1e-5":
+            worst[name] = min(worst.get(name, 1.0), v)
+        else:
+            worst[name] = max(worst.get(name, 0.0), v)
+
+
+def k4_switch_params(torch, p, jet, inj, gen):
+    """``p`` with the power law's b and an energy injection in one of its
+    forms ("none", "log10_L0", "L0" a column with zeros, "L0_const")."""
+    n_b = p["thetaCore"].shape[0]
+    dev = p["thetaCore"].device
+    p = dict(p)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n_b, generator=gen, device=dev)
+
+    if jet == 4:
+        p["b"] = uniform(*K4_B_RANGE)
+    if inj != "none":
+        q = torch.tensor(K4_Q_VALUES, device=dev)
+        p["q"] = q[torch.arange(n_b, device=dev) % len(K4_Q_VALUES)]
+        p["ts"] = uniform(*K4_TS_RANGE)
+    if inj == "log10_L0":
+        p["log10_L0"] = uniform(*K4_LOG10_L0_RANGE)
+    elif inj == "L0":
+        l0 = 10.0 ** uniform(*K4_LOG10_L0_COLUMN_RANGE)
+        p["L0"] = torch.where(torch.arange(n_b, device=dev) % 7 == 0, 0.0, l0)
+    elif inj == "L0_const":
+        p["L0"] = 3e46
+    return p
+
+
+def k4_work(n_b, n_th, n_r):
+    """(f32 operations, bytes) of stage 1 at (B, Th, R), as
+    portbench/counts/trpi2018.py counts it: STAGE1_OPS per (row, ring,
+    radius), STAGE1_SUB_OPS per (row, ring, subgrid radius); the operands
+    written once (t_delay and five tracks per (row, ring, subgrid radius),
+    r_grid, d_cos, scal and inv_dl26) and the 15 parameters of a row read
+    once."""
+    from portbench.counts.trpi2018 import STAGE1_OPS, STAGE1_SUB_OPS
+
+    n_sub = (n_r + 1) // 2 if n_r >= 256 else n_r
+    n_ops = n_b * n_th * (n_r * STAGE1_OPS + n_sub * STAGE1_SUB_OPS)
+    n_bytes = 4.0 * n_b * (6 * n_th * n_sub + n_sub + n_th + 8 + 1 + 15)
+    return n_ops, n_bytes
+
+
+def k4_path(np, torch, analysis, t_grid):
+    """Phase 9a: K4 against the plain stage 1 on the card, over the jet
+    types, spread and trumpet on and off, no injection and each form of
+    one, R = 256 and 128, shared and per-row times (B = 257 config-3 prior
+    draws each); at PERF.md §7's fault point inside a B = 8192 batch; then
+    K4's device time at B = 8192 and 64, the plain stage 1's, the bound and
+    the peak memory of each. Returns K4's entry of the kernel line."""
+    from nmma_tpu_torch.models import grb
+    from nmma_tpu_torch.ops import grb_kernel as k3
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(K4_SEED)
+
+    def draw(b, u=None):
+        u = analysis.priors.sample_units(gen, b) if u is None else u
+        p = analysis.model.prepare_parameters(analysis.priors.transform(u))
+        p.setdefault("d_L", 3.086e19)
+        return p, analysis.model.nu_0s[None].expand(b, -1)
+
+    worst, failed = {}, []
+    n_b = 257
+    injections = ("none", "log10_L0", "L0", "L0_const")
+    k = 0
+    for jet in (grb.JET_GAUSSIAN, grb.JET_TOPHAT, grb.JET_POWERLAW):
+        for spread, trumpet in ((True, True), (True, False), (False, False)):
+            for with_inj in (False, True):
+                for n_r in (256, 128):
+                    for per_row in (False, True):
+                        k += 1
+                        inj = injections[k % 3 + 1] if with_inj else "none"
+                        p, nu = draw(n_b)
+                        p = k4_switch_params(torch, p, jet, inj, gen)
+                        if k % 2:      # the distance as luminosity_distance
+                            del p["d_L"]
+                        t = t_grid[torch.arange(n_b, device=DEVICE)
+                                   % t_grid.shape[0]][:, None] \
+                            if per_row else t_grid
+                        kw = dict(jet_type=jet, n_r=n_r, spread=spread,
+                                  trumpet=trumpet)
+                        reset_counts("k4")
+                        got = grb.grb_stage1(t, nu, p, **kw)
+                        launched = k4_launches()
+                        want = grb.grb_stage1_plain(t, nu, p, **kw)
+                        errs = k4_errors(torch, got, want)
+                        # K3 on both: the flux the operands give
+                        flux = [k3.eats_flux(*o[0]) for o in (got, want)]
+                        errs["flux"] = relative_error(torch, *flux)
+                        bad = k4_failures(errs, injection=with_inj)
+                        if launched != 1:
+                            bad.append(f"{launched} K4 launches")
+                        case = (f"jet{jet}_spread{int(spread)}_trumpet"
+                                f"{int(trumpet)}_{inj}_R{n_r}_"
+                                f"{'rowtime' if per_row else 'shared'}")
+                        k4_worst(worst, errs, with_inj)
+                        say("k4", case=case, batch=n_b, ok=not bad,
+                            **{name: f"{v:.3e}" for name, v in errs.items()})
+                        if bad:
+                            failed.append(f"{case}: {', '.join(bad)}")
+
+    # the fault point inside a B = 8192 batch: K4 against the plain stage 1
+    # and the logL each gives
+    u = analysis.priors.sample_units(gen, BATCH)
+    u[0] = torch.tensor(K4_FAULT_U, device=DEVICE)
+    p, nu = draw(BATCH, u)
+    got = grb.grb_stage1(t_grid, nu, p)
+    want = grb.grb_stage1_plain(t_grid, nu, p)
+    errs = k4_errors(torch, got, want)
+    k4_worst(worst, errs, False)
+
+    def first_row(out):
+        """Row 0 of grb_stage1's results (log_q and the phi nodes are
+        shared)."""
+        ops, d_cos, inv_dl26 = out
+        return (tuple(o if i in (4, 5, 6) else o[:1]
+                      for i, o in enumerate(ops)), d_cos[:1], inv_dl26[:1])
+
+    row0 = k4_errors(torch, first_row(got), first_row(want))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(
+        *(tuple(r[0]) + r[1:] for r in (first_row(got), first_row(want)))))
+    del got, want
+    logl = analysis.batched_logl(u)
+    stage1 = grb.grb_stage1
+    grb.grb_stage1 = grb.grb_stage1_plain
+    try:
+        logl_plain = analysis.batched_logl(u)
+    finally:
+        grb.grb_stage1 = stage1
+    usable = (logl > -1e29) & (logl_plain > -1e29)
+    dlogl = (logl - logl_plain)[usable].abs()
+    bad = k4_failures(errs)
+    if bool((dlogl > LOGL_ATOL + LOGL_RTOL
+             * logl_plain[usable].abs()).any()):
+        bad.append(f"logL off the plain stage 1 by {float(dlogl.max())}")
+    if not torch.equal(logl > -1e29, logl_plain > -1e29):
+        bad.append("sentinels differ from the plain stage 1")
+    if bad:
+        failed.append(f"fault batch: {', '.join(bad)}")
+    say("k4_fault", batch=BATCH, u=",".join(map(str, K4_FAULT_U)),
+        row_bit_equal=equal, logl_k4=f"{float(logl[0]):.4f}",
+        logl_plain=f"{float(logl_plain[0]):.4f}",
+        max_abs_dlogl=f"{float(dlogl.max()):.3e}",
+        **{f"row_{name}": f"{v:.3e}" for name, v in row0.items()},
+        **{f"batch_{name}": f"{v:.3e}" for name, v in errs.items()})
+
+    # device time at B = 8192 (CUDA events) and 64 (the profiler: the host
+    # launches slower than the card runs there), the plain version's, the
+    # bound, and the peak memory of one call of each
+    p, nu = draw(BATCH)
+    k4_ms = time_ms(torch, lambda: grb.grb_stage1(t_grid, nu, p), rounds=5,
+                    launches=5, warmup=2)
+    k4_dev_ms = kernel_device_ms(torch, lambda: grb.grb_stage1(t_grid, nu, p),
+                                 "grb_dynamics", calls=5, warmup=1)
+    p64, nu64 = draw(SAMPLER_BATCH // 2)
+    k4_ms_64, windows = kernel_device_windows(
+        torch, lambda: grb.grb_stage1(t_grid, nu64, p64), "grb_dynamics")
+    plain_ms = time_ms(torch, lambda: grb.grb_stage1_plain(t_grid, nu, p),
+                       rounds=1, launches=1, warmup=1)
+    peaks = []
+    for fn in (grb.grb_stage1, grb.grb_stage1_plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(t_grid, nu, p)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+        del out
+    ops = grb.grb_stage1(t_grid, nu, p)[0]
+    n_ops, n_bytes = k4_work(BATCH, ops[0].shape[1], grb.N_R)
+    bound_ms, bound_by = roofline_ms(n_ops, n_bytes)
+    n_ops64, n_bytes64 = k4_work(SAMPLER_BATCH // 2, ops[0].shape[1],
+                                 grb.N_R)
+    bound_ms_64 = roofline_ms(n_ops64, n_bytes64)[0]
+    del ops
+    say("k4", batch=BATCH, kernel_ms=f"{k4_ms:.4f}",
+        kernel_device_ms=f"{k4_dev_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / k4_dev_ms:.4f}",
+        gops=f"{n_ops / 1e9:.3f}", mbytes=f"{n_bytes / 1e6:.3f}",
+        peak_mib=f"{peaks[0]:.1f}", plain_peak_mib=f"{peaks[1]:.1f}")
+    say("k4", batch=SAMPLER_BATCH // 2, kernel_device_ms=f"{k4_ms_64:.4f}",
+        timed_by="profiler", profiled_windows=windows,
+        bound_ms=f"{bound_ms_64:.4f}")
+    say("k4", worst=",".join(f"{k}:{v:.3e}" for k, v in worst.items()),
+        cases=k)
+    if failed:
+        raise RuntimeError("K4 disagrees with the plain stage 1:\n"
+                           + "\n".join(failed))
+    return {
+        "name": "grb_dynamics", "route": "cuda",
+        "source": "nmma_tpu_torch/csrc/grb_dynamics.cu",
+        "replaces": None, "max_rel_err_t_delay": worst["t_delay"],
+        "max_abs_err_tracks_head": worst["tracks_head"],
+        "max_abs_err_tracks_head_injection": worst["tracks_head_injection"],
+        "max_rel_err_flux": worst["flux"],
+        "ms": k4_dev_ms, "kernel_ms": k4_ms, "ms_64": k4_ms_64,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "peak_mib": peaks[0], "plain_peak_mib": peaks[1], "library_ms": None,
+    }
+
+
 def grb_path(np, torch, gen):
     """Phases 9-11: K3 against its plain version, then the TrPi2018 main
     path (BASELINE config 3) through EMAnalysis.batched_logl and the
-    sampler. Returns K3's entry of the kernel line."""
+    sampler. Returns K3's and K4's entries of the kernel line."""
     from nmma_tpu_torch.analysis import EMAnalysis, EMAnalysisConfig
     from nmma_tpu_torch.inference import NestedSamplerConfig
     from nmma_tpu_torch.models import grb
@@ -1205,6 +1538,7 @@ def grb_path(np, torch, gen):
                                         max_iter=40, max_seconds=90.0))
         analysis = EMAnalysis(cfg, device=DEVICE)
         t_grid = grb.trpi2018_time_grid(analysis.model.sample_times)
+        k4_entry = k4_path(np, torch, analysis, t_grid)
 
         def operands(b):
             """K3's operands for b config-3 prior draws at full width."""
@@ -1304,13 +1638,13 @@ def grb_path(np, torch, gen):
         reset()
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        logl_launches = k3_launches()
-        if logl_launches != 1 or k1_launches() != 0 \
+        logl_launches, logl_k4 = k3_launches(), k4_launches()
+        if logl_launches != 1 or logl_k4 != 1 or k1_launches() != 0 \
                 or k2_launches() != 0:
             raise RuntimeError(
                 f"TrPi2018 batched_logl launched K3 {logl_launches} times, "
-                f"K1 {k1_launches()} and K2 {k2_launches()} "
-                "times, not once, never and never")
+                f"K4 {logl_k4}, K1 {k1_launches()} and K2 "
+                f"{k2_launches()} times, not once, once, never and never")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
             raise RuntimeError(f"bad batched_logl output {logl.shape}")
@@ -1352,7 +1686,8 @@ def grb_path(np, torch, gen):
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("grb_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
-            k3_launches=logl_launches, k1_launches=k1_launches(),
+            k3_launches=logl_launches, k4_launches=logl_k4,
+            k1_launches=k1_launches(),
             k2_launches=k2_launches(), calls=logl_calls,
             wall_ms=f"{logl_ms:.4f}",
             evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
@@ -1374,12 +1709,12 @@ def grb_path(np, torch, gen):
         if not math.isfinite(result.logz):
             raise RuntimeError(f"TrPi2018 logZ not finite: {result.logz}")
         expected = 1 + result.niter * cfg.sampler.walks
-        if launches != expected or launches <= 0 \
-                or k1_launches() != 0 or k2_launches() != 0:
+        if launches != expected or k4_launches() != expected \
+                or launches <= 0 or k1_launches() != 0 or k2_launches() != 0:
             raise RuntimeError(
-                f"the TrPi2018 sampler launched K3 {launches} times "
-                f"(expected {expected}), K1 {k1_launches()} and K2 "
-                f"{k2_launches()} times")
+                f"the TrPi2018 sampler launched K3 {launches} and K4 "
+                f"{k4_launches()} times (expected {expected} each), K1 "
+                f"{k1_launches()} and K2 {k2_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
             if not os.path.exists(os.path.join(cfg.outdir,
@@ -1388,8 +1723,9 @@ def grb_path(np, torch, gen):
         say("grb_sampler", logz=f"{result.logz:.4f}",
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
-            k3_launches=launches, k1_launches=k1_launches(),
-            k2_launches=k2_launches())
+            k3_launches=launches, k4_launches=k4_launches(),
+            k1_launches=k1_launches(), k2_launches=k2_launches())
+    k4_entry.update(launches=launches, launches_batched_logl=logl_k4)
 
     return {
         "name": "grb_eats_flux", "route": "cuda",
@@ -1399,7 +1735,7 @@ def grb_path(np, torch, gen):
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": k3_ms, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
-    }
+    }, k4_entry
 
 
 def combined_logl(np, torch, gen):
@@ -1436,10 +1772,11 @@ def combined_logl(np, torch, gen):
         reset_launches()
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
-        launches = (k1_launches(), k2_launches(), k3_launches())
-        if launches != (0, 1, 1):
+        launches = (k1_launches(), k2_launches(), k3_launches(),
+                    k4_launches())
+        if launches != (0, 1, 1, 1):
             raise RuntimeError(f"the combined batched_logl launched (K1, K2, "
-                               f"K3) {launches} times, not (0, 1, 1)")
+                               f"K3, K4) {launches} times, not (0, 1, 1, 1)")
         if logl.shape != (n_b,) or torch.isnan(logl).any():
             raise RuntimeError(f"bad batched_logl output {logl.shape}")
         usable = logl > -1e29
@@ -1475,7 +1812,7 @@ def combined_logl(np, torch, gen):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("combined_logl", batch=n_b, finite_share=f"{finite_share:.4f}",
             k1_launches=launches[0], k2_launches=launches[1],
-            k3_launches=launches[2],
+            k3_launches=launches[2], k4_launches=launches[3],
             tie_samples_dropped=int((~keep).sum()),
             max_abs_dlogl_vs_plain=f"{float(dlogl.max()):.3e}",
             max_rel_dlogl_vs_plain=f"{float((dlogl / logl_plain[kept].abs().clamp(min=1.0)).max()):.3e}",
@@ -1829,9 +2166,10 @@ def grb_ramp_path(np, torch, gen):
         reset()
         _, mags = analysis.model(p64)
         torch.cuda.synchronize()
-        if k3_launches() != calls(64):
+        if k3_launches() != calls(64) or k4_launches() != calls(64):
             raise RuntimeError(f"the ramp at B=64 launched K3 {k3_launches()} "
-                               f"times, not {calls(64)}")
+                               f"and K4 {k4_launches()} times, not "
+                               f"{calls(64)}")
         kernel_fn = k3.eats_flux
         k3.eats_flux = k3.eats_flux_plain
         try:
@@ -1853,8 +2191,8 @@ def grb_ramp_path(np, torch, gen):
         reset()
         logl = analysis.batched_logl(u[:64])
         torch.cuda.synchronize()
-        if (k3_launches(), k1_launches(), k2_launches()) != \
-                (calls(64), 0, 0):
+        if (k3_launches(), k4_launches(), k1_launches(), k2_launches()) \
+                != (calls(64), calls(64), 0, 0):
             raise RuntimeError(
                 f"the ramp's batched_logl at B=64 launched K3, K1, K2 "
                 f"{k3_launches()}, {k1_launches()}, "
@@ -1886,11 +2224,12 @@ def grb_ramp_path(np, torch, gen):
             torch.cuda.synchronize()
             peak_mb = torch.cuda.max_memory_allocated() / 2**20
             launches = (k3_launches(), k1_launches(),
-                        k2_launches())
-            if launches != (calls(b), 0, 0):
+                        k2_launches(), k4_launches())
+            if launches != (calls(b), 0, 0, calls(b)):
                 raise RuntimeError(
-                    f"the ramp's batched_logl at B={b} launched K3, K1, K2 "
-                    f"{launches} times, not ({calls(b)}, 0, 0)")
+                    f"the ramp's batched_logl at B={b} launched K3, K1, K2, "
+                    f"K4 {launches} times, not ({calls(b)}, 0, 0, "
+                    f"{calls(b)})")
             usable = logl > -1e29
             if logl.shape != (b,) or torch.isnan(logl).any() \
                     or float(usable.float().mean()) < 0.5:
@@ -1909,6 +2248,7 @@ def grb_ramp_path(np, torch, gen):
             if b == BATCH:
                 ramp_k3_ms = k3_dev
             say("grb_ramp", batch=b, rows=b * n_nodes, k3_launches=launches[0],
+                k4_launches=launches[3],
                 k3_expected=calls(b), calls=n_calls, wall_ms=f"{wall_ms:.4f}",
                 evals_per_s=f"{b / (wall_ms / 1e3):.1f}",
                 evals_per_s_rounds=",".join(
@@ -1940,8 +2280,9 @@ def grb_ramp_path(np, torch, gen):
     reset()
     m_inj = curve(energy_exponential=a, log10_Eend=le, t_start=t_start,
                   injection_duration=t_end)
-    if k3_launches() != calls(1):
-        raise RuntimeError(f"one ramp curve launched K3 {k3_launches()} times")
+    if k3_launches() != calls(1) or k4_launches() != calls(1):
+        raise RuntimeError(f"one ramp curve launched K3 {k3_launches()} and "
+                           f"K4 {k4_launches()} times")
     m_lo = curve(log10_E0=le + a * math.log10(t_start / t_end))
     m_hi = curve(log10_E0=le)
     t_sec = t.cpu().numpy() * 86400.0
@@ -2246,6 +2587,11 @@ def k3_launches():
     return tracing.counter(tracing.K3_LAUNCHES)
 
 
+def k4_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K4_LAUNCHES)
+
+
 def collectives():
     """The split likelihood's collectives since they were last reset."""
     from nmma_tpu_torch import tracing
@@ -2258,7 +2604,7 @@ def kernel_launches():
 
 
 def reset_counts(*names):
-    """Set the counters of nmma_tpu_torch.tracing named "k1", "k2", "k3"
+    """Set the counters of nmma_tpu_torch.tracing named "k1" to "k4"
     (kernel launches) or "mesh" (collectives) to 0."""
     from nmma_tpu_torch import tracing
     tracing.reset(*(tracing.MESH_COLLECTIVES if n == "mesh"
@@ -2266,7 +2612,7 @@ def reset_counts(*names):
 
 
 def reset_launches():
-    reset_counts("k1", "k2", "k3")
+    reset_counts("k1", "k2", "k3", "k4")
 
 
 def gw_logl_gate(torch, got, want, data_power):
@@ -5812,7 +6158,7 @@ def main() -> int:
         k1_mesh, k1_mesh_rank = mesh_phase(np, torch, cfg, tmp)
 
     k2_entry = me2017_path(np, torch, gen, sample_times)
-    k3_entry = grb_path(np, torch, gen)
+    k3_entry, k4_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
     cli_launches, cli_posterior, k1_bands, k1_bestfit = cli_path(np, torch)
     kn_models(np, torch, gen)
@@ -5858,7 +6204,7 @@ def main() -> int:
         "launches_lc_bands": k1_bands,
         "launches_bestfit_cli": k1_bestfit,
         "launches_mesh": k1_mesh, "launches_mesh_rank": k1_mesh_rank,
-    }, k2_entry, k3_entry]
+    }, k2_entry, k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

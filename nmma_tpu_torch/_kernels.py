@@ -22,6 +22,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one library beside NVCC_FLAGS: K4 follows an eager PyTorch chain
+# operation by operation, so no product and sum may fuse into an FMA
+EXTRA_FLAGS = {"grb_dynamics": ("-fmad=false",)}
 
 # library name -> (source file, {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
@@ -38,6 +41,12 @@ KERNELS = {
     "grb_eats": ("grb_eats.cu", {
         "nmma_grb_eats": (_I, [_P] * 9 + [_I] * 8 + [_P]),
         "nmma_grb_eats_supported": (_I, [ctypes.c_longlong] + [_I] * 6),
+        "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "grb_dynamics": ("grb_dynamics.cu", {
+        "nmma_grb_dynamics": (_I, [_P] * 13 + [ctypes.c_longlong] + [_I] * 9
+                              + [ctypes.c_float, _I, _P]),
+        "nmma_grb_dynamics_supported": (_I, [ctypes.c_longlong] + [_I] * 6),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
 }
@@ -62,12 +71,17 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for the library ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
     source = os.path.join(CSRC, KERNELS[name][0])
     digest = hashlib.sha256()
     with open(source, "rb") as f:
         digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -84,7 +98,7 @@ def build(names=None) -> dict[str, str]:
             if not os.path.exists(path):
                 tmp = f"{path}.{os.getpid()}.tmp"
                 procs[name] = (tmp, subprocess.Popen(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                    [nvcc_path(), *flags(name), "-o", tmp,
                      os.path.join(CSRC, KERNELS[name][0])],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))

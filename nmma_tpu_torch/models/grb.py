@@ -11,8 +11,10 @@ equal-arrival-time surface over (theta, phi) is then integrated by K3
 
 The work is split in two. :func:`grb_stage1` computes the dynamics and
 returns K3's operands (the JAX package hands the same operands to
-``_eats_stage2``, grb.py:497); :func:`grb_afterglow_flux_density` calls K3
-and sums the rings. Every quantity that would leave f32's range is carried
+``_eats_stage2``, grb.py:497): on the card through K4
+(``ops/grb_dynamics_kernel.py``), on the CPU through
+:func:`grb_stage1_plain`; :func:`grb_afterglow_flux_density` calls K3 and
+sums the rings. Every quantity that would leave f32's range is carried
 in the JAX package's scaled units: energies / 1e50, radii r17 = R / 1e17,
 the distance as 1e26 / d_L, with the large constants folded into Python
 floats.
@@ -27,7 +29,7 @@ import torch
 
 from .. import tracing
 from ..constants import c_cgs, seconds_a_day
-from ..ops import grb_kernel
+from ..ops import grb_dynamics_kernel, grb_kernel
 from ..ops.interp import masked_interp_sorted_fill
 from ..ops.photometry import flux_to_ab_mag
 from .base import SourceModel, register_source_model
@@ -95,10 +97,129 @@ def _cum_trapz(r_grid, dr, integrand):
         dim=-1)], dim=-1)
 
 
+# read-only tables that depend only on a resolution, made once per device:
+# an upload from numpy makes the host wait for the card
+_TABLES = {}
+
+
+def _table(kind, n, device, make):
+    key = (kind, n, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = make()
+    return _TABLES[key]
+
+
+def phi_nodes(n_phi, device):
+    """(cos phi, weights), f32 [n_phi] on ``device``: the Gauss-Legendre
+    nodes on (0, pi) with weights summing to n_phi, made once per
+    (n_phi, device)."""
+    def make():
+        x_gl, w_gl = np.polynomial.legendre.leggauss(n_phi)
+        phi = torch.tensor((x_gl + 1.0) * (np.pi / 2.0), dtype=torch.float32,
+                           device=device)
+        return torch.cos(phi), torch.tensor(w_gl * (n_phi / 2.0),
+                                            dtype=torch.float32, device=device)
+    return _table("phi", n_phi, device, make)
+
+
+def _ring_edge_fractions(n_theta, device):
+    """The ring edges' fractions of theta_max, [n_theta + 1], as
+    :func:`grb_stage1_plain` computes them on ``device``."""
+    return _table("rings", n_theta, device, lambda: torch.linspace(
+        0.0, 1.0, n_theta + 1, dtype=torch.float32, device=device) ** 1.3)
+
+
+def _radius_fractions(n_r, device):
+    """The log-R grid's exponents, [n_r], as :func:`grb_stage1_plain`
+    computes them on ``device``."""
+    return _table("radii", n_r, device, lambda: torch.arange(
+        n_r, dtype=torch.float32, device=device) / (n_r - 1))
+
+
+def _switches(params, spread, trumpet):
+    """(spread, trumpet) as Python bools: trumpet needs spread."""
+    spread_on = _static_flag(
+        spread if spread is not None else params.get("spread", True),
+        "spread")
+    if trumpet is None:
+        trumpet = _static_flag(params.get("trumpet", True), "trumpet")
+    return spread_on, bool(trumpet) and spread_on
+
+
 def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
                n_theta=N_THETA, n_phi=N_PHI, n_r=N_R, spread=None,
                trumpet=None):
-    """Blast-wave dynamics of every ring, up to K3's operands.
+    """Blast-wave dynamics of every ring, up to K3's operands: K4 for
+    parameters on a CUDA device, :func:`grb_stage1_plain` for CPU tensors;
+    arguments and results as :func:`grb_stage1_plain`. Another device
+    raises; nothing falls back from one to the other."""
+    kw = dict(jet_type=jet_type, n_theta=n_theta, n_phi=n_phi, n_r=n_r,
+              spread=spread, trumpet=trumpet)
+    if torch.as_tensor(params["thetaCore"]).device.type == "cpu":
+        return grb_stage1_plain(t_obs_day, nu_obs, params, **kw)
+    return _stage1_k4(t_obs_day, nu_obs, params, **kw)
+
+
+def _stage1_k4(t_obs_day, nu_obs, params, jet_type, n_theta, n_phi, n_r,
+               spread, trumpet):
+    """:func:`grb_stage1_plain`'s parameters mapped onto K4's slots, K4,
+    and the operands K4 does not make (the phi nodes, nu_obs)."""
+    f32 = torch.float32
+    theta_core = torch.as_tensor(params["thetaCore"], dtype=f32)
+    dev = theta_core.device
+
+    def value(key, default=None):
+        v = params[key] if default is None else params.get(key, default)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=f32)
+        return float(v)
+
+    values = {key: value(key) for key in (
+        "log10_E0", "log10_n0", "p", "log10_epsilon_e", "log10_epsilon_B")}
+    values.update(thetaCore=theta_core, inclination_EM=value(
+        "inclination_EM", 0.0), xi_N=value("xi_N", 1.0),
+        redshift=value("redshift", 0.0), b=value("b", 6.0),
+        q=value("q", 0.0), ts=value("ts", 0.0))
+    wing_from_core = "thetaWing" not in params
+    values["thetaWing"] = 0.0 if wing_from_core else value("thetaWing")
+    if "d_L" in params:
+        values["distance"], dist_coef = value("d_L"), 1e26
+    else:
+        values["distance"] = value("luminosity_distance")
+        dist_coef = 1e26 / _MPC_CM
+    # the injection, as grb_stage1_plain reads it
+    k4 = grb_dynamics_kernel
+    if "log10_L0" in params:
+        injection, values["L0"] = k4.INJ_LOG10, value("log10_L0")
+    else:
+        l0_raw = params.get("L0", 0.0)
+        if isinstance(l0_raw, (int, float)):
+            values["L0"] = float(l0_raw) / 1e50
+            injection = (k4.INJ_NONE if values["L0"] <= 0.0
+                         else k4.INJ_CONST)
+        else:
+            injection, values["L0"] = k4.INJ_RAW, value("L0")
+    spread_on, trumpet = _switches(params, spread, trumpet)
+    t_delay, log_tracks, r_grid, scal, log_q, d_cos, inv_dl26 = \
+        k4.grb_dynamics(
+            [values[k] for k in k4.SLOTS],
+            t_obs_day.to(device=dev, dtype=f32).contiguous(),
+            _ring_edge_fractions(n_theta, dev), _radius_fractions(n_r, dev),
+            jet_type=jet_type, spread=spread_on, trumpet=trumpet,
+            injection=injection, wing_from_core=wing_from_core,
+            dist_coef=dist_coef)
+    cphi, wphi = phi_nodes(n_phi, dev)
+    nu_obs = torch.as_tensor(nu_obs, dtype=f32, device=dev)
+    nu_obs = nu_obs.expand(t_delay.shape[0], nu_obs.shape[-1]).contiguous()
+    return ((t_delay, log_tracks, r_grid, scal, log_q, cphi, wphi, nu_obs),
+            d_cos, inv_dl26)
+
+
+def grb_stage1_plain(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
+                     n_theta=N_THETA, n_phi=N_PHI, n_r=N_R, spread=None,
+                     trumpet=None):
+    """Blast-wave dynamics of every ring, up to K3's operands, in eager
+    PyTorch (K4's plain version).
 
     ``t_obs_day`` [T] observer times (days) shared by the batch, or
     [B, 1], one time a row (the energy ramp's folded nodes; a row's radius
@@ -199,12 +320,7 @@ def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
 
     # lateral spreading and the trumpet treatment (grb.py:236-340); the
     # switches steer control flow, so they are single Python values
-    spread_on = _static_flag(
-        spread if spread is not None else params.get("spread", True),
-        "spread")
-    if trumpet is None:
-        trumpet = _static_flag(params.get("trumpet", True), "trumpet")
-    trumpet = bool(trumpet) and spread_on
+    spread_on, trumpet = _switches(params, spread, trumpet)
     if spread_on:
         ghat = (4.0 * gamma + 1.0) / (3.0 * gamma)
         cs2 = (ghat * (ghat - 1.0) * (gamma - 1.0)) / \
@@ -291,9 +407,7 @@ def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
     log_tracks = torch.clamp(torch.nan_to_num(
         log_tracks, nan=-88.0, posinf=88.0, neginf=-88.0), -88.0, 88.0)
 
-    x_gl, w_gl = np.polynomial.legendre.leggauss(n_phi)
-    phi = torch.tensor((x_gl + 1.0) * (np.pi / 2.0), dtype=f32, device=dev)
-    wphi = torch.tensor(w_gl * (n_phi / 2.0), dtype=f32, device=dev)
+    cphi, wphi = phi_nodes(n_phi, dev)
     zeros = torch.zeros_like(z)
     scal = torch.stack([z, torch.cos(theta_v), torch.sin(theta_v), p,
                         theta_v, zeros, zeros, zeros], dim=-1)    # [B, 8]
@@ -301,8 +415,7 @@ def grb_stage1(t_obs_day, nu_obs, params, jet_type=JET_GAUSSIAN,
     nu_obs = torch.as_tensor(nu_obs, dtype=f32, device=dev)
     nu_obs = nu_obs.expand(n_b, nu_obs.shape[-1]).contiguous()
     operands = (t_delay.contiguous(), log_tracks.contiguous(),
-                r_grid.contiguous(), scal, log_q, torch.cos(phi), wphi,
-                nu_obs)
+                r_grid.contiguous(), scal, log_q, cphi, wphi, nu_obs)
     return operands, d_cos, inv_dl26
 
 
@@ -328,9 +441,10 @@ def grb_afterglow_flux_density(t_obs_day, nu_obs, params,
 
 
 # device memory that one chunk of the energy ramp's folded rows may take in
-# stage 1, in bytes, and the f32 [n_theta, n_r] tensors that stage 1 holds
-# per row at its peak (11,708.6 MiB for 8192 rows at 48 x 256, PERF.md §5:
-# about 30 of them)
+# stage 1, in bytes, and the f32 [n_theta, n_r] tensors that the plain stage
+# 1 holds per row at its peak (11,708.6 MiB for 8192 rows at 48 x 256: about
+# 30 of them). K4 holds only K3's operands, but the chunks stay as they
+# are: they set K3's launches on the ramp
 RAMP_CHUNK_BYTES = 8 << 30
 _STAGE1_ROW_TENSORS = 30
 

@@ -24,7 +24,7 @@ of ``TRIMONTH_S`` seconds; :func:`trace_us` maps a stamp onto that axis, so
 a span lies beside the profiler's own records of the same moment.
 
 Counters are host integers, counted whether or not a profiler records:
-kernel launches (``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K3_LAUNCHES``) and the
+kernel launches (``K1_LAUNCHES`` to ``K4_LAUNCHES``) and the
 split likelihood's collectives (``MESH_COLLECTIVES``; the sampler's stop
 agreement is not counted). :func:`counter` reads one, :func:`reset` sets
 them to 0.
@@ -44,6 +44,7 @@ import torch
 K1_LAUNCHES = "kernel.k1.launches"
 K2_LAUNCHES = "kernel.k2.launches"
 K3_LAUNCHES = "kernel.k3.launches"
+K4_LAUNCHES = "kernel.k4.launches"
 MESH_COLLECTIVES = "mesh.collectives"
 
 # the span of one call into the likelihood layer: it takes a new call id,
@@ -82,7 +83,7 @@ class _Noop:
 
 
 _NOOP = _Noop()
-_counts = {K1_LAUNCHES: 0, K2_LAUNCHES: 0, K3_LAUNCHES: 0,
+_counts = {K1_LAUNCHES: 0, K2_LAUNCHES: 0, K3_LAUNCHES: 0, K4_LAUNCHES: 0,
            MESH_COLLECTIVES: 0}
 _records = []
 _dropped = 0

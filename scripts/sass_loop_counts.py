@@ -81,10 +81,10 @@ def main() -> int:
     args = parser.parse_args()
     nvcc = _kernels.nvcc_path()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    flags = [f for f in _kernels.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
         for lib, (source, _) in _kernels.KERNELS.items():
+            flags = [f for f in _kernels.flags(lib)
+                     if f not in ("-shared", "-Xcompiler", "-fPIC")]
             cubin = os.path.join(tmp, lib + ".cubin")
             subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
                             os.path.join(args.csrc, source)],

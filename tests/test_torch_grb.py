@@ -36,6 +36,8 @@ Tolerances, with their reasons:
 - logL: rtol 1e-4 / atol 1e-2, as on the other paths of the port.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,8 @@ import nmma_tpu_torch.filters as t_filters
 import nmma_tpu_torch.models as t_models
 import nmma_tpu_torch.models.grb as TG
 from nmma_tpu.ops.pallas_grb import eats_flux_pallas
+from nmma_tpu_torch import _kernels as t_kernels
+from nmma_tpu_torch.ops import grb_dynamics_kernel as k4
 from nmma_tpu_torch.ops import grb_kernel as k3
 
 torch.set_num_threads(1)
@@ -819,3 +823,160 @@ def test_model_kwargs_reach_the_source_model():
     me = t_models.DetectorLightCurveModel("Me2017", ["ztfr"],
                                           model_kwargs=kw, device="cpu")
     assert me.model_kwargs == {}
+
+
+# -- K4, stage 1 on the card (ops/grb_dynamics_kernel.py) --------------------
+#
+# The kernel runs only on a CUDA card (chip_smoke.py holds it to the plain
+# stage 1 there); on the CPU the dispatch, the wrapper's checks, the slots
+# the parameters map onto and the cached phi nodes are tested.
+
+def test_cpu_stage1_is_the_plain_version_and_loads_no_library(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a CPU stage 1 loaded {name}")
+
+    monkeypatch.setattr(t_kernels, "load", refuse)
+    theta = draw(3, 21)
+    args = (torch.from_numpy(T_OBS), torch.from_numpy(NU), as_port(theta))
+    got = TG.grb_stage1(*args, **SMALL)
+    want = TG.grb_stage1_plain(*args, **SMALL)
+    for g, w in zip(tuple(got[0]) + got[1:], tuple(want[0]) + want[1:]):
+        assert torch.equal(g, w)
+    assert TG.grb_afterglow_flux_density(*args, **SMALL).shape == (3, 3, 64)
+
+
+def k4_inputs(n_b=4, n_th=8, n_r=128, device="cpu"):
+    values = [torch.full((n_b,), 0.1, device=device)] + \
+        [1.0] * (len(k4.SLOTS) - 1)
+    return (values, torch.ones(16, device=device),
+            torch.linspace(0.0, 1.0, n_th + 1, device=device),
+            torch.linspace(0.0, 1.0, n_r, device=device))
+
+
+K4_FLAGS = dict(jet_type=TG.JET_GAUSSIAN, spread=True, trumpet=True,
+                injection=k4.INJ_NONE, wing_from_core=False, dist_coef=1e26)
+
+
+@pytest.mark.parametrize("case", [
+    "cpu", "float64_column", "float64_times", "matrix_column",
+    "wrong_length_column", "strided_times", "time_shape", "edge_shape",
+    "int_value", "slot_count", "jet_type", "injection"])
+def test_k4_wrapper_refuses_before_any_launch(monkeypatch, case):
+    """The wrapper checks devices, dtypes, shapes and contiguity before it
+    loads the library; a CPU tensor reaches it only when called directly,
+    and is refused."""
+    def refuse(name):
+        raise AssertionError(f"the wrapper loaded {name}")
+
+    monkeypatch.setattr(t_kernels, "load", refuse)
+    values, t_obs, edge, frac = k4_inputs()
+    flags = dict(K4_FLAGS)
+    error = ValueError
+    if case == "float64_column":
+        values[1], error = torch.ones(4, dtype=torch.float64), TypeError
+    elif case == "float64_times":
+        t_obs, error = t_obs.double(), TypeError
+    elif case == "matrix_column":
+        values[2] = torch.ones(4, 1)
+    elif case == "wrong_length_column":
+        values[3] = torch.ones(3)
+    elif case == "strided_times":
+        t_obs = torch.ones(32)[::2]
+    elif case == "time_shape":
+        t_obs = torch.ones(4, 2)
+    elif case == "edge_shape":
+        edge = torch.ones(1)
+    elif case == "int_value":
+        values[4], error = 2, TypeError
+    elif case == "slot_count":
+        values = values[:-1]
+    elif case == "jet_type":
+        flags["jet_type"] = 2
+    elif case == "injection":
+        flags["injection"] = 4
+    with pytest.raises(error, match=None if case != "cpu" else "device"):
+        k4.grb_dynamics(values, t_obs, edge, frac, **flags)
+
+
+def test_k4_kernel_names_are_not_k3s():
+    """The benchmark finds K3's launches by the substring grb_eats
+    (portbench/counts/trpi2018.py KERNEL): no kernel of K4 may carry it."""
+    import re
+    with open(os.path.join(os.path.dirname(t_kernels.__file__), "csrc",
+                           "grb_dynamics.cu")) as f:
+        source = f.read()
+    names = re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*"
+                       r"\)\s*)?(?:void\s+)?(\w+)\s*\(", source)
+    assert names == ["grb_dynamics_kernel"]
+    assert not any("grb_eats" in n for n in names)
+
+
+@pytest.mark.parametrize("case,injection,l0", [
+    ("none", k4.INJ_NONE, 0.0), ("zero_constant", k4.INJ_NONE, 0.0),
+    ("constant", k4.INJ_CONST, 3e46 / 1e50), ("log10", k4.INJ_LOG10, None),
+    ("column", k4.INJ_RAW, None)])
+def test_k4_slots_follow_the_plain_parameters(monkeypatch, case, injection,
+                                              l0):
+    """_stage1_k4 hands K4 the parameters the plain stage 1 reads, with its
+    defaults, the injection in the form it takes, the distance's units and
+    thetaWing's default; and returns the plain version's operand layout."""
+    seen = {}
+
+    def fake(values, t_obs, edge, frac, **flags):
+        seen.update(values=values, t_obs=t_obs, edge=edge, frac=frac, **flags)
+        n_b, n_th, n_r = values[0].shape[0], edge.shape[0] - 1, frac.shape[0]
+        z = torch.zeros
+        return (z(n_b, n_th, n_r), z(n_b, 5, n_th, n_r), z(n_b, n_r),
+                z(n_b, 8), torch.log(t_obs * 86400.0), z(n_b, n_th), z(n_b))
+
+    monkeypatch.setattr(k4, "grb_dynamics", fake)
+    theta = draw(3, 22)
+    p = as_port(theta)
+    del p["thetaWing"]
+    if case == "zero_constant":
+        p["L0"] = 0.0
+    elif case == "constant":
+        p.update(L0=3e46, q=0.5)
+    elif case == "log10":
+        p.update(log10_L0=torch.tensor([45.0, 46.0, 47.0]), ts=300.0)
+    elif case == "column":
+        p["L0"] = torch.tensor([1e46, 0.0, 2e46], dtype=torch.float64)
+    ops, d_cos, inv_dl26 = TG._stage1_k4(
+        torch.from_numpy(T_OBS), torch.from_numpy(NU), p, jet_type=0,
+        spread=None, trumpet=False, **SMALL)
+    values = dict(zip(k4.SLOTS, seen["values"]))
+    assert seen["injection"] == injection
+    assert seen["wing_from_core"] and not seen["trumpet"] and seen["spread"]
+    assert seen["dist_coef"] == 1e26 / TG._MPC_CM
+    assert values["distance"] is p["luminosity_distance"]
+    assert (values["xi_N"], values["redshift"], values["b"]) == \
+        (1.0, 0.0, 6.0)
+    assert values["q"] == (0.5 if case == "constant" else 0.0)
+    assert values["ts"] == (300.0 if case == "log10" else 0.0)
+    if l0 is not None:
+        assert values["L0"] == l0
+    else:
+        assert values["L0"].dtype == torch.float32
+    torch.testing.assert_close(seen["edge"], torch.linspace(
+        0.0, 1.0, 9) ** 1.3, rtol=0, atol=0)
+    torch.testing.assert_close(seen["frac"], torch.arange(128.0) / 127,
+                               rtol=0, atol=0)
+    want = TG.grb_stage1_plain(torch.from_numpy(T_OBS),
+                               torch.from_numpy(NU), as_port(theta), **SMALL)
+    for g, w in zip(ops, want[0]):
+        assert g.shape == w.shape
+    torch.testing.assert_close(ops[5:], want[0][5:], rtol=0, atol=0)
+
+
+def test_phi_nodes_are_cached_gauss_legendre():
+    """The phi nodes and weights equal leggauss on (0, pi), weights summing
+    to n_phi, made once per (n_phi, device)."""
+    cphi, wphi = TG.phi_nodes(16, torch.device("cpu"))
+    x, w = np.polynomial.legendre.leggauss(16)
+    phi = torch.tensor(np.float32((x + 1.0) * (np.pi / 2.0)))
+    assert torch.equal(cphi, torch.cos(phi))
+    np.testing.assert_array_equal(wphi.numpy(), np.float32(w * 8.0))
+    assert cphi.dtype == wphi.dtype == torch.float32
+    again = TG.phi_nodes(16, "cpu")
+    assert again[0] is cphi and again[1] is wphi
+    assert TG.phi_nodes(4, "cpu")[0].shape == (4,)
