@@ -143,7 +143,8 @@ light-curve bands on the runs that make them (K1, K2, K3):
               (RAMP_PRIOR_TEXT): magnitudes and logL at B = 64 against the
               plain K3 (1e-3 mag below FAINT_MAG, identical inf; the logL
               gate of phase 10); batched_logl at B = 64 and 8192 with K3
-              and K4 launches equal to the chunks exactly, wall and device ms,
+              and K4 launches and the grb.ramp.chunks counter equal to the
+              chunks exactly (1 and 91), wall and device ms,
               evals/s and peak memory; and the ramp's meaning (before
               t_start the constant-E0(Estart) curve, after the injection
               the constant-E0(Eend) one, between them inside both).
@@ -2025,7 +2026,9 @@ def grb_ramp_path(np, torch, gen):
     from nmma_tpu_torch.ops import grb_kernel as k3
 
     def reset():
+        from nmma_tpu_torch import tracing
         reset_launches()
+        tracing.reset(tracing.RAMP_CHUNKS)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ramp_") as tmp:
         data_path = os.path.join(tmp, "injection.dat")
@@ -2166,10 +2169,11 @@ def grb_ramp_path(np, torch, gen):
         reset()
         _, mags = analysis.model(p64)
         torch.cuda.synchronize()
-        if k3_launches() != calls(64) or k4_launches() != calls(64):
+        if k3_launches() != calls(64) or k4_launches() != calls(64) \
+                or ramp_chunks() != calls(64):
             raise RuntimeError(f"the ramp at B=64 launched K3 {k3_launches()} "
-                               f"and K4 {k4_launches()} times, not "
-                               f"{calls(64)}")
+                               f"and K4 {k4_launches()} times in "
+                               f"{ramp_chunks()} chunks, not {calls(64)}")
         kernel_fn = k3.eats_flux
         k3.eats_flux = k3.eats_flux_plain
         try:
@@ -2191,12 +2195,12 @@ def grb_ramp_path(np, torch, gen):
         reset()
         logl = analysis.batched_logl(u[:64])
         torch.cuda.synchronize()
-        if (k3_launches(), k4_launches(), k1_launches(), k2_launches()) \
-                != (calls(64), calls(64), 0, 0):
+        if (k3_launches(), k4_launches(), k1_launches(), k2_launches(),
+                ramp_chunks()) != (calls(64), calls(64), 0, 0, calls(64)):
             raise RuntimeError(
-                f"the ramp's batched_logl at B=64 launched K3, K1, K2 "
-                f"{k3_launches()}, {k1_launches()}, "
-                f"{k2_launches()} times")
+                f"the ramp's batched_logl at B=64 launched K3, K4, K1, K2 "
+                f"{k3_launches()}, {k4_launches()}, {k1_launches()}, "
+                f"{k2_launches()} times in {ramp_chunks()} chunks")
         usable = logl > -1e29
         if not torch.equal(usable, logl_plain > -1e29):
             raise RuntimeError("the ramp's sentinels differ from the plain "
@@ -2224,12 +2228,12 @@ def grb_ramp_path(np, torch, gen):
             torch.cuda.synchronize()
             peak_mb = torch.cuda.max_memory_allocated() / 2**20
             launches = (k3_launches(), k1_launches(),
-                        k2_launches(), k4_launches())
-            if launches != (calls(b), 0, 0, calls(b)):
+                        k2_launches(), k4_launches(), ramp_chunks())
+            if launches != (calls(b), 0, 0, calls(b), calls(b)):
                 raise RuntimeError(
                     f"the ramp's batched_logl at B={b} launched K3, K1, K2, "
-                    f"K4 {launches} times, not ({calls(b)}, 0, 0, "
-                    f"{calls(b)})")
+                    f"K4 {launches[:4]} times in {launches[4]} chunks, not "
+                    f"({calls(b)}, 0, 0, {calls(b)}) in {calls(b)}")
             usable = logl > -1e29
             if logl.shape != (b,) or torch.isnan(logl).any() \
                     or float(usable.float().mean()) < 0.5:
@@ -2248,7 +2252,7 @@ def grb_ramp_path(np, torch, gen):
             if b == BATCH:
                 ramp_k3_ms = k3_dev
             say("grb_ramp", batch=b, rows=b * n_nodes, k3_launches=launches[0],
-                k4_launches=launches[3],
+                k4_launches=launches[3], ramp_chunks=launches[4],
                 k3_expected=calls(b), calls=n_calls, wall_ms=f"{wall_ms:.4f}",
                 evals_per_s=f"{b / (wall_ms / 1e3):.1f}",
                 evals_per_s_rounds=",".join(
@@ -2280,9 +2284,11 @@ def grb_ramp_path(np, torch, gen):
     reset()
     m_inj = curve(energy_exponential=a, log10_Eend=le, t_start=t_start,
                   injection_duration=t_end)
-    if k3_launches() != calls(1) or k4_launches() != calls(1):
+    if k3_launches() != calls(1) or k4_launches() != calls(1) \
+            or ramp_chunks() != calls(1):
         raise RuntimeError(f"one ramp curve launched K3 {k3_launches()} and "
-                           f"K4 {k4_launches()} times")
+                           f"K4 {k4_launches()} times in {ramp_chunks()} "
+                           f"chunks")
     m_lo = curve(log10_E0=le + a * math.log10(t_start / t_end))
     m_hi = curve(log10_E0=le)
     t_sec = t.cpu().numpy() * 86400.0
@@ -2590,6 +2596,12 @@ def k3_launches():
 def k4_launches():
     from nmma_tpu_torch import tracing
     return tracing.counter(tracing.K4_LAUNCHES)
+
+
+def ramp_chunks():
+    """The energy ramp's chunks since they were last reset."""
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.RAMP_CHUNKS)
 
 
 def collectives():

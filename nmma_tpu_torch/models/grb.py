@@ -493,20 +493,28 @@ def _e0_ramp_flux(t_grid, nu_obs, p, n_theta=N_THETA, n_r=N_R, **kw):
     energy, so it needs its own dynamics. The Tg nodes are folded into the
     batch (:func:`ramp_rows`), and each row asks for the flux at its own
     time alone (stage 1's per-row time, K3's per-row query). The B Tg rows
-    run in chunks of :func:`ramp_chunk_rows`, one K3 launch each."""
+    run in chunks of :func:`ramp_chunk_rows`, one K3 launch each: spans
+    ``grb.ramp`` around it all, ``grb.ramp.fold`` and ``grb.ramp.chunk``;
+    counter ``tracing.RAMP_CHUNKS``."""
     n_b, n_t = nu_obs.shape[0], t_grid.shape[0]
     rows = n_b * n_t
-    folded, t_rows, nu_rows = ramp_rows(p, t_grid, nu_obs)
     chunk = ramp_chunk_rows(n_theta, n_r)
-    flux = []
-    for s in range(0, rows, chunk):
-        e = min(rows, s + chunk)
-        part = {k: (v[s:e] if isinstance(v, torch.Tensor) and v.dim() > 0
-                    else v) for k, v in folded.items()}
-        flux.append(grb_afterglow_flux_density(
-            t_rows[s:e], nu_rows[s:e], part, n_theta=n_theta, n_r=n_r,
-            **kw)[..., 0])                                      # [n, F]
-    return torch.cat(flux).reshape(n_b, n_t, -1).transpose(1, 2)
+    with tracing.span("grb.ramp", rows=rows, points=n_b,
+                      chunks=-(-rows // chunk)):
+        with tracing.span("grb.ramp.fold"):
+            folded, t_rows, nu_rows = ramp_rows(p, t_grid, nu_obs)
+        flux = []
+        for s in range(0, rows, chunk):
+            e = min(rows, s + chunk)
+            tracing.count(tracing.RAMP_CHUNKS)
+            with tracing.span("grb.ramp.chunk", rows=e - s):
+                part = {k: (v[s:e] if isinstance(v, torch.Tensor)
+                            and v.dim() > 0 else v)
+                        for k, v in folded.items()}
+                flux.append(grb_afterglow_flux_density(
+                    t_rows[s:e], nu_rows[s:e], part, n_theta=n_theta,
+                    n_r=n_r, **kw)[..., 0])                     # [n, F]
+        return torch.cat(flux).reshape(n_b, n_t, -1).transpose(1, 2)
 
 
 def trpi2018_time_grid(t_days):

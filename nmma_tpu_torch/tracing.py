@@ -24,10 +24,10 @@ of ``TRIMONTH_S`` seconds; :func:`trace_us` maps a stamp onto that axis, so
 a span lies beside the profiler's own records of the same moment.
 
 Counters are host integers, counted whether or not a profiler records:
-kernel launches (``K1_LAUNCHES`` to ``K4_LAUNCHES``) and the
-split likelihood's collectives (``MESH_COLLECTIVES``; the sampler's stop
-agreement is not counted). :func:`counter` reads one, :func:`reset` sets
-them to 0.
+kernel launches (``K1_LAUNCHES`` to ``K4_LAUNCHES``), the energy ramp's
+chunks (``RAMP_CHUNKS``) and the split likelihood's collectives
+(``MESH_COLLECTIVES``; the sampler's stop agreement is not counted).
+:func:`counter` reads one, :func:`reset` sets them to 0.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ K1_LAUNCHES = "kernel.k1.launches"
 K2_LAUNCHES = "kernel.k2.launches"
 K3_LAUNCHES = "kernel.k3.launches"
 K4_LAUNCHES = "kernel.k4.launches"
+RAMP_CHUNKS = "grb.ramp.chunks"
 MESH_COLLECTIVES = "mesh.collectives"
 
 # the span of one call into the likelihood layer: it takes a new call id,
@@ -70,6 +71,8 @@ class SpanRecord(NamedTuple):
     rows: int            # rows of the batch the span was given, or -1
     start_ns: int        # time.time_ns() on entry
     end_ns: int          # time.time_ns() on exit
+    points: int = -1     # live points behind the rows, or -1
+    chunks: int = -1     # chunks the rows run in, or -1
 
 
 class _Noop:
@@ -84,7 +87,7 @@ class _Noop:
 
 _NOOP = _Noop()
 _counts = {K1_LAUNCHES: 0, K2_LAUNCHES: 0, K3_LAUNCHES: 0, K4_LAUNCHES: 0,
-           MESH_COLLECTIVES: 0}
+           RAMP_CHUNKS: 0, MESH_COLLECTIVES: 0}
 _records = []
 _dropped = 0
 _ids = itertools.count()
@@ -94,12 +97,16 @@ _local = threading.local()
 
 class _Span:
     __slots__ = ("name", "id", "parent", "call", "iteration", "rows",
-                 "start_ns")
+                 "points", "chunks", "start_ns")
 
-    def __init__(self, name, iteration, batch):
+    def __init__(self, name, iteration, batch, rows, points, chunks):
         self.name = name
         self.iteration = -1 if iteration is None else iteration
-        self.rows = -1 if batch is None else len(batch)
+        if rows is None:
+            rows = -1 if batch is None else len(batch)
+        self.rows = rows
+        self.points = -1 if points is None else points
+        self.chunks = -1 if chunks is None else chunks
 
     def __enter__(self):
         stack = getattr(_local, "stack", None)
@@ -122,7 +129,8 @@ class _Span:
         end_ns = time.time_ns()
         _local.stack.pop()
         _keep(SpanRecord(self.name, self.id, self.parent, self.call,
-                         self.iteration, self.rows, self.start_ns, end_ns))
+                         self.iteration, self.rows, self.start_ns, end_ns,
+                         self.points, self.chunks))
         return False
 
 
@@ -139,14 +147,17 @@ def recording():
     return _recording()
 
 
-def span(name, iteration=None, batch=None):
+def span(name, iteration=None, batch=None, rows=None, points=None,
+         chunks=None):
     """A context that records ``name`` while a profiler records, else the
     shared no-op. ``iteration`` is the sampler's iteration number (spans
     inside inherit it); ``batch`` is the tensor whose rows the span
-    handles, read only while recording."""
+    handles, read only while recording, or ``rows`` their number;
+    ``points`` the live points behind them and ``chunks`` the chunks
+    they run in, where the span has such."""
     if not _recording():
         return _NOOP
-    return _Span(name, iteration, batch)
+    return _Span(name, iteration, batch, rows, points, chunks)
 
 
 def records():
@@ -206,7 +217,7 @@ def add_to_chrome_trace(path, spans):
                    "tid": SPAN_TID, "args": {"name": "nmma_tpu_torch spans"}})
     for s in spans:
         args = {"id": s.id, "parent": s.parent}
-        for key in ("call", "iteration", "rows"):
+        for key in ("call", "iteration", "rows", "points", "chunks"):
             if getattr(s, key) >= 0:
                 args[key] = getattr(s, key)
         events.append({"ph": "X", "cat": "program_span", "name": s.name,
