@@ -60,13 +60,23 @@ light-curve bands on the runs that make them (K1, K2, K3):
               100 ties where the pair's vm differ, ltot within 1e-4, one
               launch per call;
   7. me2017_logl
-              the same as phase 4 with the Me2017 model (one K2 launch, no
-              K1 launch), its peak device memory, and |dlogL| against the
-              plain K2 off the live points where the plain version sees a
-              near-tie;
+              the same as phase 4 with the Me2017 model (one K2 and one K5
+              launch, no K1 launch), its peak device memory, and |dlogL|
+              against the plain K2 off the live points where the plain
+              version sees a near-tie;
   8. me2017_sampler
               the same as phase 5 with the Me2017 model: K2 launches
-              1 + iterations x walks, no K1 launch.
+              1 + iterations x walks, K5 launches as many, no K1 launch.
+  8a. k5      K5 (csrc/bb_photometry.cu, the banded blackbody) against the
+              plain photometry on the card at B = 8192, 256 and 61:
+              Me2017's photospheres from K2 with the temperature fill's
+              edge cases (undefined at the head, in the middle and at the
+              tail; one valid sample; none) through the kernel's prologue,
+              and Piro2021, blackbody_fixedT and HoNa2020 photospheres
+              without it: one launch a call, max |dmag| over the finite
+              entries <= 1e-4 and the same infinities; then K5's device
+              time at B = 8192 and 256, the plain chain's, the bound and
+              the peak memory of each;
   9a. k4      K4 (csrc/grb_dynamics.cu, TrPi2018's stage 1) against the
               plain stage 1 on the card over the Gaussian, tophat and
               power-law jets, spreading with and without the trumpet and
@@ -549,6 +559,14 @@ K4_FAULT_U = (0.99999988, 0.95318, 0.83112, 0.24144, 0.14920, 0.02560,
 # [k4] draws from a generator of its own, so the phases after it see the
 # draws they saw before it was added
 K4_SEED = 22
+# [k5] draws from a generator of its own, for the same reason; K5 against
+# the plain photometry on the card: max |dmag| over the finite entries (the
+# two differ in the order of the sum over the nodes alone), at the sampler
+# cells' batch, the documented traffic's n_delete and a batch that fills no
+# warp evenly
+K5_SEED = 24
+K5_MAG_TOL = 1e-4
+K5_BATCHES = (BATCH, 256, 61)
 # Me2017 + TrPi2018: the model and prior of BASELINE config 4
 # (scripts/bench_grb_pe.py:63-97) on synthetic photometry
 COMBINED_PRIOR_TEXT = """\
@@ -1082,15 +1100,15 @@ def me2017_path(np, torch, gen, sample_times):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mb = torch.cuda.memory_allocated() / 2**20
-        reset_counts("k1", "k2")
+        reset_counts("k1", "k2", "k5")
         logl = analysis.batched_logl(u)
         torch.cuda.synchronize()
         logl_launches = k2_launches()
-        if logl_launches != 1 or k1_launches() != 0:
+        if logl_launches != 1 or k1_launches() != 0 or k5_launches() != 1:
             raise RuntimeError(f"Me2017 batched_logl launched K2 "
-                               f"{logl_launches} times and K1 "
-                               f"{k1_launches()} times, not once and "
-                               "never")
+                               f"{logl_launches} times, K5 {k5_launches()} "
+                               f"times and K1 {k1_launches()} times, not "
+                               "once, once and never")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if logl.shape != (BATCH,) or torch.isnan(logl).any():
             raise RuntimeError(f"bad batched_logl output {logl.shape}")
@@ -1135,8 +1153,9 @@ def me2017_path(np, torch, gen, sample_times):
         if not logl_inj > float(logl[usable].median()):
             raise RuntimeError(f"injection logL {logl_inj} below the median")
         say("me2017_logl", batch=BATCH, finite_share=f"{finite_share:.4f}",
-            k2_launches=logl_launches, k1_launches=k1_launches(),
-            calls=logl_calls, wall_ms=f"{logl_ms:.4f}",
+            k2_launches=logl_launches, k5_launches=1,
+            k1_launches=k1_launches(), calls=logl_calls,
+            wall_ms=f"{logl_ms:.4f}",
             evals_per_s=f"{BATCH / (logl_ms / 1e3):.1f}",
             evals_per_s_rounds=",".join(
                 f"{BATCH / (ms / 1e3):.1f}" for ms in round_ms),
@@ -1148,7 +1167,7 @@ def me2017_path(np, torch, gen, sample_times):
 
         # 8. the nested sampler on the Me2017 path
         t0 = time.time()
-        reset_counts("k1", "k2")
+        reset_counts("k1", "k2", "k5")
         result = analysis.run(verbose=False)
         torch.cuda.synchronize()
         launches = k2_launches()
@@ -1157,9 +1176,10 @@ def me2017_path(np, torch, gen, sample_times):
             raise RuntimeError(f"Me2017 logZ not finite: {result.logz}")
         expected = 1 + result.niter * cfg.sampler.walks
         if launches != expected or launches <= 0 \
-                or k1_launches() != 0:
+                or k1_launches() != 0 or k5_launches() != launches:
             raise RuntimeError(f"the Me2017 sampler launched K2 {launches} "
-                               f"times (expected {expected}) and K1 "
+                               f"times (expected {expected}), K5 "
+                               f"{k5_launches()} times and K1 "
                                f"{k1_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
@@ -1169,7 +1189,8 @@ def me2017_path(np, torch, gen, sample_times):
         say("me2017_sampler", logz=f"{result.logz:.4f}",
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
-            k2_launches=launches, k1_launches=k1_launches())
+            k2_launches=launches, k5_launches=k5_launches(),
+            k1_launches=k1_launches())
 
     return {
         "name": "me2017_dynamics", "route": "cuda",
@@ -1180,6 +1201,191 @@ def me2017_path(np, torch, gen, sample_times):
         "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
         "ms_sampler_batch": k2_ms_small,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
+    }
+
+
+def k5_photospheres(ltot, r_photo):
+    """Me2017's (ltot40, r_photo) [B, T] from K2 with the temperature
+    fill's edge cases planted in rows 0-9 (a batch of fewer rows keeps the
+    first ones): undefined temperatures at the head, in the middle and at
+    the tail, by R = 0 (no radius either) or by L = 0 (a radius to fill
+    over); a row with one valid sample and one with none; a negative L; a
+    row whose two valid samples set a long extrapolation."""
+    ltot, r_photo = ltot.clone(), r_photo.clone()
+    n_b, n_t = ltot.shape
+    cases = [(r_photo, 0, slice(0, 7)), (r_photo, 1, slice(60, 70)),
+             (r_photo, 2, slice(n_t - 20, n_t)), (ltot, 5, slice(10, 15)),
+             (ltot, 6, slice(0, 5)), (ltot, 7, slice(n_t - 30, n_t))]
+    for t, row, cols in cases:
+        if row < n_b:
+            t[row, cols] = 0.0
+    if n_b > 3:
+        r_photo[3, :] = 0.0
+        r_photo[3, 40] = 1e15
+    if n_b > 4:
+        r_photo[4, :] = 0.0
+    if n_b > 8:
+        ltot[8] = -ltot[8]
+    if n_b > 9:
+        keep = ltot[9, [50, 52]].clone()
+        ltot[9, :] = 0.0
+        ltot[9, [50, 52]] = keep
+    return ltot, r_photo
+
+
+def k5_compare(torch, got, want):
+    """(max |dmag| over the entries finite on both sides, whether +inf,
+    -inf and NaN sit in the same places)."""
+    same = all(bool(torch.equal(f(got), f(want))) for f in
+               (torch.isposinf, torch.isneginf, torch.isnan))
+    both = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[both].abs().max()) if bool(both.any()) \
+        else 0.0
+    return err, same
+
+
+def k5_path(np, torch):
+    """Phase 8a: K5 (csrc/bb_photometry.cu) against the plain photometry on
+    the card at B = 8192, 256 and 61: Me2017's photospheres from K2 with
+    the fill's edge cases through _me2017_photometry (the prologue) against
+    _me2017_photometry_plain, and the Piro2021, blackbody_fixedT and
+    HoNa2020 photospheres (1/T and R, no prologue) against the same models
+    with blackbody_ab_mag_banded_plain; one K5 launch a call, max |dmag|
+    over the finite entries <= K5_MAG_TOL and the same infinities. Then
+    K5's device time at B = 8192 and 256, the plain chain's, the bound
+    (counted as portbench/metrics/k5_roofline.py counts it) and the peak
+    memory of each. Returns K5's entry of the kernel line."""
+    from nmma_tpu_torch.models import DetectorLightCurveModel, kilonova
+    from nmma_tpu_torch.models import shock_cooling
+    from nmma_tpu_torch.ops import me2017_kernel as k2
+    from nmma_tpu_torch.ops import photometry
+    from nmma_tpu_torch.priors import parse_prior_dict
+    from portbench.metrics import k5_roofline
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(K5_SEED)
+    filters = ["sdssu", "ztfg", "ztfr", "ztfi", "ps1::z", "ps1::y",
+               "2massj", "2massh", "2massks"]
+    me = DetectorLightCurveModel("Me2017", filters, device=DEVICE)
+    t_days = me.sample_times
+    me_priors = parse_prior_dict(ME_PRIOR_TEXT)
+
+    def me2017_inputs(b):
+        p = me.prepare_parameters(me_priors.transform(
+            me_priors.sample_units(gen, b)))
+        ltot, r_photo = k2.me2017_dynamics(
+            p["log10_mej"], p["log10_vej"], p["beta"],
+            10.0 ** p["log10_kappa_r"], t_days)
+        ltot, r_photo = k5_photospheres(ltot, r_photo)
+        z = p["redshift"]
+        return (ltot, r_photo, t_days, me.nu_0s[None] * (1.0 + z)[:, None],
+                me.nu_nodes[None] * (1.0 + z)[:, None, None], me.nu_weights)
+
+    class Plain:
+        """blackbody_ab_mag_banded swapped for its plain version where a
+        model module reads it."""
+        modules = (kilonova, shock_cooling)
+
+        def __enter__(self):
+            self.kept = [m.blackbody_ab_mag_banded for m in self.modules]
+            for m in self.modules:
+                m.blackbody_ab_mag_banded = \
+                    photometry.blackbody_ab_mag_banded_plain
+
+        def __exit__(self, *exc):
+            for m, fn in zip(self.modules, self.kept):
+                m.blackbody_ab_mag_banded = fn
+
+    def source_call(model, prior_text, grid, b):
+        det = DetectorLightCurveModel(model, filters, device=DEVICE,
+                                      sample_times=grid)
+        priors = parse_prior_dict(prior_text)
+        p = det.prepare_parameters(priors.transform(
+            priors.sample_units(gen, b)))
+        z = p["redshift"]
+        args = (p, det.sample_times, det.nu_0s[None] * (1.0 + z)[:, None])
+        kw = dict(nu_nodes=det.nu_nodes[None] * (1.0 + z)[:, None, None],
+                  nu_weights=det.nu_weights)
+        return lambda: det.source.mags_fn(*args, **kw)
+
+    worst, failed = 0.0, []
+    for b in K5_BATCHES:
+        inputs = me2017_inputs(b)
+        calls = {"Me2017": (lambda: kilonova._me2017_photometry(*inputs),
+                            lambda: kilonova._me2017_photometry_plain(
+                                *inputs))}
+        for model, grid in (("Piro2021", np.geomspace(1.0 / 24.0, 3.5, 100)),
+                            ("blackbody_fixedT", np.geomspace(0.01, 14.0,
+                                                              150)),
+                            ("HoNa2020", np.geomspace(0.05, 14.0, 150))):
+            prior = EM_MODELS[model][0] if model in EM_MODELS \
+                else KN_MODELS[model][0]
+            fn = source_call(model, prior, grid, b)
+
+            def plain(fn=fn):
+                with Plain():
+                    return fn()
+            calls[model] = (fn, plain)
+        for model, (fn, plain) in calls.items():
+            reset_counts("k5")
+            got = fn()
+            launched = k5_launches()
+            want = plain()
+            torch.cuda.synchronize()
+            err, same = k5_compare(torch, got, want)
+            finite = float(torch.isfinite(want).float().mean())
+            worst = max(worst, err)
+            say("k5", model=model, batch=b, prologue=model == "Me2017",
+                max_abs_dmag=f"{err:.3e}", inf_identical=same,
+                finite_share=f"{finite:.4f}", launches=launched)
+            if launched != 1 or not same or not err <= K5_MAG_TOL:
+                failed.append(f"{model} B={b}: {launched} launches, "
+                              f"{err} mag, infinities identical: {same}")
+
+    # device time at B = 8192 and 256 (the profiler), the plain chain's
+    # (CUDA events), the bound and the peak memory of one call of each
+    readings = {}
+    for b in (BATCH, 256):
+        inputs = me2017_inputs(b)
+        fn = lambda: kilonova._me2017_photometry(*inputs)  # noqa: E731
+        plain = lambda: kilonova._me2017_photometry_plain(  # noqa: E731
+            *inputs)
+        dev_ms, windows = kernel_device_windows(torch, fn,
+                                                "bb_photometry_kernel")
+        plain_ms = time_ms(torch, plain, rounds=5, launches=2, warmup=1)
+        peaks = []
+        for call in (fn, plain):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = call()
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+            del out
+        n_f, n_k = inputs[4].shape[1:]
+        n_ops, n_bytes = k5_roofline.work(b, n_f, n_k, t_days.shape[0])
+        bound_ms, bound_by = roofline_ms(n_ops, n_bytes)
+        readings[b] = dict(dev_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           peaks=peaks)
+        say("k5", batch=b, kernel_device_ms=f"{dev_ms:.4f}",
+            timed_by="profiler", profiled_windows=windows,
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, share_of_bound=f"{bound_ms / dev_ms:.4f}",
+            gops=f"{n_ops / 1e9:.3f}", mbytes=f"{n_bytes / 1e6:.3f}",
+            peak_mib=f"{peaks[0]:.1f}", plain_peak_mib=f"{peaks[1]:.1f}")
+    if failed:
+        raise RuntimeError("K5 disagrees with the plain photometry:\n"
+                           + "\n".join(failed))
+    big = readings[BATCH]
+    return {
+        "name": "bb_photometry", "route": "cuda",
+        "source": "nmma_tpu_torch/csrc/bb_photometry.cu",
+        "replaces": None, "max_abs_dmag": worst,
+        "ms": big["dev_ms"], "ms_256": readings[256]["dev_ms"],
+        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "peak_mib": big["peaks"][0],
+        "plain_peak_mib": big["peaks"][1], "library_ms": None,
     }
 
 
@@ -2598,6 +2804,11 @@ def k4_launches():
     return tracing.counter(tracing.K4_LAUNCHES)
 
 
+def k5_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K5_LAUNCHES)
+
+
 def ramp_chunks():
     """The energy ramp's chunks since they were last reset."""
     from nmma_tpu_torch import tracing
@@ -2616,7 +2827,7 @@ def kernel_launches():
 
 
 def reset_counts(*names):
-    """Set the counters of nmma_tpu_torch.tracing named "k1" to "k4"
+    """Set the counters of nmma_tpu_torch.tracing named "k1" to "k5"
     (kernel launches) or "mesh" (collectives) to 0."""
     from nmma_tpu_torch import tracing
     tracing.reset(*(tracing.MESH_COLLECTIVES if n == "mesh"
@@ -2624,7 +2835,7 @@ def reset_counts(*names):
 
 
 def reset_launches():
-    reset_counts("k1", "k2", "k3", "k4")
+    reset_counts("k1", "k2", "k3", "k4", "k5")
 
 
 def gw_logl_gate(torch, got, want, data_power):
@@ -5619,19 +5830,21 @@ def service_phase(np, torch, tmp):
             torch.cuda.synchronize()
             wall = time.time() - t0
             counted = kernel_launches()
+            k5 = k5_launches()
             want = (0, counted[1], 0) if name == "Me2017" else \
                 (0, 0, counted[2])
             if out["status"] != "success" or not math.isfinite(
                     out["log_evidence"]) or counted != want \
-                    or max(counted) == 0:
+                    or max(counted) == 0 or k5 != counted[1]:
                 raise RuntimeError(f"[service] {name}: {out['status']}, "
                                    f"logZ {out.get('log_evidence')}, K1-K3 "
-                                   f"{counted}")
+                                   f"{counted}, K5 {k5}")
             counts[name] = max(counted)
             say("service", request=name, wall_s=f"{wall:.3f}",
                 logz=f"{out['log_evidence']:.4f}",
                 likelihood_calls=out["n_likelihood_evaluations"],
                 k1_k2_k3_launches=",".join(map(str, counted)),
+                k5_launches=k5,
                 quantiles=",".join(sorted(out["posterior_quantiles"])),
                 webhook=out.get("webhook_status", "none"))
         reset_launches()
@@ -5708,21 +5921,22 @@ def skyportal_phase(np, torch, tmp):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     counted = kernel_launches()
+    k5 = k5_launches()
     label = os.path.join(root, "run", "Me2017_obj")
     missing = [s for s in ("_result.npz", "_posterior_samples.csv",
                            "_bestfit.json", "_result_meta.json")
                if not os.path.exists(label + s)]
     if out["status"] != "success" or missing or counted[1] == 0 \
-            or counted[0] or counted[2] or not \
+            or counted[0] or counted[2] or k5 != counted[1] or not \
             -1e29 < out["log_bayes_factor"] < 0.0 or \
             (plot == "drawn") != bool(out["plot_file"]):
         raise RuntimeError(f"[skyportal] {out}, missing {missing}, K1-K3 "
-                           f"{counted}")
+                           f"{counted}, K5 {k5}")
     with open(os.path.join(root, "run", "Me2017.prior")) as fh:
         pinned = [ln for ln in fh if ln.startswith("luminosity_distance")]
     say("skyportal", status=out["status"],
         logz=f"{out['log_bayes_factor']:.4f}", seconds=f"{seconds:.2f}",
-        k2_launches=counted[1], plot=plot,
+        k2_launches=counted[1], k5_launches=k5, plot=plot,
         distance=pinned[0].split("=")[1].strip(),
         posterior_samples=len(runs[0].result.posterior_indices()))
     bands_launches = lc_bands(
@@ -6170,6 +6384,7 @@ def main() -> int:
         k1_mesh, k1_mesh_rank = mesh_phase(np, torch, cfg, tmp)
 
     k2_entry = me2017_path(np, torch, gen, sample_times)
+    k5_entry = k5_path(np, torch)
     k3_entry, k4_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
     cli_launches, cli_posterior, k1_bands, k1_bestfit = cli_path(np, torch)
@@ -6216,7 +6431,7 @@ def main() -> int:
         "launches_lc_bands": k1_bands,
         "launches_bestfit_cli": k1_bestfit,
         "launches_mesh": k1_mesh, "launches_mesh_rank": k1_mesh_rank,
-    }, k2_entry, k3_entry, k4_entry]
+    }, k2_entry, k3_entry, k4_entry, k5_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

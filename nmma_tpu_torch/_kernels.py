@@ -22,9 +22,10 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one library beside NVCC_FLAGS: K4 follows an eager PyTorch chain
-# operation by operation, so no product and sum may fuse into an FMA
-EXTRA_FLAGS = {"grb_dynamics": ("-fmad=false",)}
+# flags of one library beside NVCC_FLAGS: K4 and K5 follow an eager PyTorch
+# chain operation by operation, so no product and sum may fuse into an FMA
+EXTRA_FLAGS = {"grb_dynamics": ("-fmad=false",),
+               "bb_photometry": ("-fmad=false",)}
 
 # library name -> (source file, {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
@@ -47,6 +48,12 @@ KERNELS = {
         "nmma_grb_dynamics": (_I, [_P] * 13 + [ctypes.c_longlong] + [_I] * 9
                               + [ctypes.c_float, _I, _P]),
         "nmma_grb_dynamics_supported": (_I, [ctypes.c_longlong] + [_I] * 6),
+        "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "bb_photometry": ("bb_photometry.cu", {
+        "nmma_bb_photometry": (_I, [_P] * 6 + [ctypes.c_longlong] + [_I] * 4
+                               + [ctypes.c_float, _I, _P]),
+        "nmma_bb_photometry_supported": (_I, [ctypes.c_longlong] + [_I] * 3),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
 }

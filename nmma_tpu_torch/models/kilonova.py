@@ -31,8 +31,11 @@ from ..constants import (AB_ZP_CGS, abs_mag_dist_factor, c_cgs, h, kb,
                          msun_cgs, seconds_a_day, sigSB)
 from ..ops.interp import interp_rows, masked_interp_linear_sorted
 from ..ops.me2017_kernel import _L_SCALE, me2017_dynamics
-from ..ops.photometry import (blackbody_ab_mag, blackbody_ab_mag_banded,
-                              flux_to_ab_mag, log_expm1)
+from ..ops.bb_photometry_kernel import me2017_bb_mags
+from ..ops.photometry import (_LOG_DIST2, blackbody_ab_mag,
+                              blackbody_ab_mag_banded,
+                              blackbody_ab_mag_banded_plain, flux_to_ab_mag,
+                              log_expm1)
 from .base import SourceModel, register_source_model
 
 
@@ -46,17 +49,33 @@ def _bb_mags(nu_host, inv_t, r_photo, nu_nodes=None, nu_weights=None):
 def _me2017_photometry(ltot40, r_photo, t_days, nu_host, nu_nodes=None,
                        nu_weights=None):
     """Effective temperature of the photosphere, filled over the grid where
-    it is undefined, then blackbody magnitudes [B, F, T]."""
+    it is undefined, then blackbody magnitudes [B, F, T]: banded on a CUDA
+    device by K5 in one launch (``ops/bb_photometry_kernel.py``), else by
+    :func:`_me2017_photometry_plain`."""
     with tracing.span("me2017.photometry"):
-        r_ok = r_photo > 0.0
-        r_safe = torch.where(r_ok, r_photo, 1.0)
-        q = ltot40.abs() * (_L_SCALE * 1e-20) / (4.0 * math.pi * sigSB) / (
-            (r_safe * 1e-10) ** 2)
-        t_obs = torch.where(r_ok & (q > 0.0), q ** 0.25, math.nan)
-        t_obs = masked_interp_linear_sorted(t_days, t_days, t_obs)
-        inv_t = torch.where(torch.isfinite(t_obs) & (t_obs > 0.0), 1.0 / t_obs,
-                            math.inf)
-        return _bb_mags(nu_host, inv_t, r_photo, nu_nodes, nu_weights)
+        if nu_nodes is not None and ltot40.device.type != "cpu":
+            return me2017_bb_mags(ltot40, r_photo, t_days.contiguous(),
+                                  nu_nodes, nu_weights, _LOG_DIST2)
+        return _me2017_photometry_plain(ltot40, r_photo, t_days, nu_host,
+                                        nu_nodes, nu_weights)
+
+
+def _me2017_photometry_plain(ltot40, r_photo, t_days, nu_host,
+                             nu_nodes=None, nu_weights=None):
+    """:func:`_me2017_photometry` as eager PyTorch: the CPU path, and what
+    K5 is held to on the card."""
+    r_ok = r_photo > 0.0
+    r_safe = torch.where(r_ok, r_photo, 1.0)
+    q = ltot40.abs() * (_L_SCALE * 1e-20) / (4.0 * math.pi * sigSB) / (
+        (r_safe * 1e-10) ** 2)
+    t_obs = torch.where(r_ok & (q > 0.0), q ** 0.25, math.nan)
+    t_obs = masked_interp_linear_sorted(t_days, t_days, t_obs)
+    inv_t = torch.where(torch.isfinite(t_obs) & (t_obs > 0.0), 1.0 / t_obs,
+                        math.inf)
+    if nu_nodes is not None:
+        return blackbody_ab_mag_banded_plain(nu_nodes, nu_weights, inv_t,
+                                             r_photo)
+    return blackbody_ab_mag(nu_host, inv_t, r_photo)
 
 
 def me2017_mags(params, t_days, nu_host, nu_nodes=None, nu_weights=None):

@@ -21,6 +21,7 @@ import torch
 
 from ..constants import (AB_ZP_CGS, AB_ZP_JY, AB_ZP_MJY, LN10,
                          abs_mag_dist_factor, c_cgs, h, kb)
+from . import bb_photometry_kernel
 
 # Python floats: abs_mag_dist_factor (~9.5e38) overflows f32, so only its
 # log ever meets a tensor
@@ -66,7 +67,25 @@ def blackbody_ab_mag_banded(nu_nodes, weights, inv_temp, radius,
                             log_dist2=_LOG_DIST2):
     """Bandpass-integrated blackbody AB magnitudes [B, F, T]: the Planck
     spectrum at the [B, F, K] quadrature nodes, averaged with the [F, K]
-    band weights. A (filter, time) is ``inf`` unless every node is valid."""
+    band weights. A (filter, time) is ``inf`` unless every node is valid.
+    CPU tensors take :func:`blackbody_ab_mag_banded_plain`, all others K5
+    (``ops/bb_photometry_kernel.py``), with the operands broadcast to B
+    rows."""
+    if nu_nodes.device.type == "cpu":
+        return blackbody_ab_mag_banded_plain(nu_nodes, weights, inv_temp,
+                                             radius, log_dist2)
+    n_b = max(nu_nodes.shape[0], inv_temp.shape[0], radius.shape[0])
+    n_t = max(inv_temp.shape[1], radius.shape[1])
+    return bb_photometry_kernel.bb_mags(
+        nu_nodes.expand(n_b, -1, -1).contiguous(), weights.contiguous(),
+        inv_temp.expand(n_b, n_t).contiguous(),
+        radius.expand(n_b, n_t).contiguous(), log_dist2)
+
+
+def blackbody_ab_mag_banded_plain(nu_nodes, weights, inv_temp, radius,
+                                  log_dist2=_LOG_DIST2):
+    """:func:`blackbody_ab_mag_banded` as eager PyTorch over [B, F, K, T]
+    tensors: the CPU path, and what K5 is held to on the card."""
     nu = nu_nodes[:, :, :, None]                     # [B, F, K, 1]
     inv_temp = inv_temp[:, None, None, :]            # [B, 1, 1, T]
     radius = radius[:, None, None, :]
