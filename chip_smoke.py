@@ -66,7 +66,8 @@ light-curve bands on the runs that make them (K1, K2, K3):
               version sees a near-tie;
   8. me2017_sampler
               the same as phase 5 with the Me2017 model: K2 launches
-              1 + iterations x walks, K5 launches as many, no K1 launch.
+              1 + iterations x walks, K5 launches as many, K6 launches one
+              per MAX_BATCH part of each likelihood call, no K1 launch.
   8a. k5      K5 (csrc/bb_photometry.cu, the banded blackbody) against the
               plain photometry on the card at B = 8192, 256 and 61:
               Me2017's photospheres from K2 with the temperature fill's
@@ -77,6 +78,17 @@ light-curve bands on the runs that make them (K1, K2, K3):
               entries <= 1e-4 and the same infinities; then K5's device
               time at B = 8192 and 256, the plain chain's, the bound and
               the peak memory of each;
+  8b. k6      K6 (csrc/em_likelihood.cu, the EM likelihood from the
+              source's magnitudes) against the plain likelihood on the card
+              at B = 8192, 256, 61 and 8253 (two parts), on Me2017 (Pei
+              SMC, a sampled E(B-V)), Me2017 with a composite filter, the
+              CCM89 foreground, a detection limit and time-node
+              systematics, TrPi2018 and the Bu2019lm surrogate (row
+              selection, a composite V, a detection limit): one launch a
+              part, max |dlogL| / max(1, |logL|) over the finite rows <=
+              1e-4 and the same -1e30 rows; then K6's device time at
+              B = 8192 and 256, the plain chain's, the bound and the peak
+              memory of each;
   9a. k4      K4 (csrc/grb_dynamics.cu, TrPi2018's stage 1) against the
               plain stage 1 on the card over the Gaussian, tophat and
               power-law jets, spreading with and without the trumpet and
@@ -401,7 +413,8 @@ light-curve bands on the runs that make them (K1, K2, K3):
               request (tests/test_services.py's payload) with a callback to
               a loopback server, a TrPi2018 request at full resolution, both
               at nlive 64, and a model off the whitelist (400): wall s and
-              K1-K3 launches of each (K2 or K3 only, > 0), the callback
+              K1-K3 launches of each (K2 or K3 only, > 0), K6 launches one
+              per MAX_BATCH part of each likelihood call, the callback
               exactly once.
  50. skyportal
               run_from_skyportal_inputs on a Me2017 SkyPortal payload (a
@@ -410,7 +423,8 @@ light-curve bands on the runs that make them (K1, K2, K3):
               the invoke hook (which keeps the run's analysis for
               [lc_bands], and takes out --plot where matplotlib is absent):
               status success, a logZ off the sentinel, the posterior,
-              result and best-fit files, K2 launches only.
+              result and best-fit files, K2 launches only (K5 as many, K6
+              one per MAX_BATCH part of each likelihood call).
  51. mesh     (runs after phase 5) the nested sampler split over a
               torch.distributed group (nmma_tpu_torch.parallel), on phase
               4's analysis with nlive 1,024, n_delete 128, 10 iterations:
@@ -567,6 +581,23 @@ K4_SEED = 22
 K5_SEED = 24
 K5_MAG_TOL = 1e-4
 K5_BATCHES = (BATCH, 256, 61)
+# [k6] draws from a generator of its own, for the same reason; K6 against
+# the plain likelihood on the card: max |dlogL| / max(1, |logL|) over the
+# rows finite on both sides (the two differ in the order of the sums over
+# the nodes and the observations, and in erfcx), the -1e30 rows identical,
+# at the same batches and at one of two MAX_BATCH parts
+K6_SEED = 26
+K6_LOGL_TOL = 1e-4
+K6_BATCHES = (BATCH, 256, 61, BATCH + 61)
+# the systematics of [k6]'s time-node case: three nodes on the optical
+# filters, one sampled value on the rest
+K6_SYSTEMATICS = {
+    "optical": {"filters": ["F606W", "ztfi"], "time_nodes": 3,
+                "time_range": "linear 0.5 12.0",
+                "prior": "Uniform(minimum=0.05, maximum=1.0)"},
+    "rest": {"prior": "Uniform(minimum=0.05, maximum=1.0)"},
+}
+K6_EBV_PRIOR = "Ebv = Uniform(minimum=0., maximum=0.5)\n"
 # Me2017 + TrPi2018: the model and prior of BASELINE config 4
 # (scripts/bench_grb_pe.py:63-97) on synthetic photometry
 COMBINED_PRIOR_TEXT = """\
@@ -1168,7 +1199,8 @@ def me2017_path(np, torch, gen, sample_times):
         # 8. the nested sampler on the Me2017 path
         t0 = time.time()
         reset_counts("k1", "k2", "k5")
-        result = analysis.run(verbose=False)
+        with LoglParts() as logl_parts:
+            result = analysis.run(verbose=False)
         torch.cuda.synchronize()
         launches = k2_launches()
         seconds = time.time() - t0
@@ -1176,10 +1208,12 @@ def me2017_path(np, torch, gen, sample_times):
             raise RuntimeError(f"Me2017 logZ not finite: {result.logz}")
         expected = 1 + result.niter * cfg.sampler.walks
         if launches != expected or launches <= 0 \
-                or k1_launches() != 0 or k5_launches() != launches:
+                or k1_launches() != 0 or k5_launches() != launches \
+                or k6_launches() != logl_parts.parts:
             raise RuntimeError(f"the Me2017 sampler launched K2 {launches} "
                                f"times (expected {expected}), K5 "
-                               f"{k5_launches()} times and K1 "
+                               f"{k5_launches()} times, K6 {k6_launches()} "
+                               f"times ({logl_parts.parts} parts) and K1 "
                                f"{k1_launches()} times")
         for suffix in ("_result.npz", "_result_meta.json",
                        "_posterior_samples.csv", "_bestfit_params.json"):
@@ -1190,6 +1224,7 @@ def me2017_path(np, torch, gen, sample_times):
             logz_err=f"{result.logz_err:.4f}", iterations=result.niter,
             likelihood_calls=result.ncall, seconds=f"{seconds:.2f}",
             k2_launches=launches, k5_launches=k5_launches(),
+            k6_launches=k6_launches(), logl_parts=logl_parts.parts,
             k1_launches=k1_launches())
 
     return {
@@ -1382,6 +1417,248 @@ def k5_path(np, torch):
         "name": "bb_photometry", "route": "cuda",
         "source": "nmma_tpu_torch/csrc/bb_photometry.cu",
         "replaces": None, "max_abs_dmag": worst,
+        "ms": big["dev_ms"], "ms_256": readings[256]["dev_ms"],
+        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "peak_mib": big["peaks"][0],
+        "plain_peak_mib": big["peaks"][1], "library_ms": None,
+    }
+
+
+class LoglParts:
+    """While open, counts the ``MAX_BATCH`` parts of the calls into
+    ``EMLikelihood.log_likelihood`` on the card (K6 launches one a part)
+    and resets K6's counter on entry."""
+
+    def __enter__(self):
+        import torch
+
+        from nmma_tpu_torch.likelihood import em
+        from nmma_tpu_torch.ops import em_likelihood_kernel as k6
+
+        self.parts = 0
+        self.kept = em.EMLikelihood.log_likelihood
+        kept = self.kept
+
+        def counted(lk, parameters):
+            if lk.data.times.device.type == "cuda":
+                rows = max(v.shape[0] for v in parameters.values()
+                           if isinstance(v, torch.Tensor) and v.dim() > 0)
+                self.parts += -(-rows // k6.MAX_BATCH)
+            return kept(lk, parameters)
+
+        em.EMLikelihood.log_likelihood = counted
+        reset_counts("k6")
+        return self
+
+    def __exit__(self, *exc):
+        from nmma_tpu_torch.likelihood import em
+        em.EMLikelihood.log_likelihood = self.kept
+
+
+def k6_data(np, torch, det, observed, injection, epochs, seed):
+    """Photometry of ``det`` at ``injection`` for the ``observed`` filters
+    (a composite one the mean of its helper rows), in days since the
+    trigger: 10 epochs a filter in ``epochs`` with seeded 0.1 mag noise,
+    the last epoch of every third filter an upper limit 1 mag brighter."""
+    from nmma_tpu_torch.filters import resolve_filter
+
+    params = {k: torch.tensor([v], device=DEVICE)
+              for k, v in injection.items()}
+    t_obs, mags = det(params)
+    t_obs = t_obs[0].double().cpu().numpy()
+    mags = mags[0].double().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    data = {}
+    for i, f in enumerate(observed):
+        kind, payload = resolve_filter(f, available=det.source.filter_names)
+        helpers = [payload] if kind == "direct" else list(payload)
+        t = np.sort(rng.uniform(epochs[0], epochs[1], 10))
+        m = np.mean([np.interp(t, t_obs, mags[det.filters.index(h)])
+                     for h in helpers], axis=0)
+        m = m + rng.normal(0.0, 0.1, t.size)
+        err = np.full(t.size, 0.1)
+        if i % 3 == 0:
+            m[-1] -= 1.0
+            err[-1] = np.inf
+        if not np.all(np.isfinite(m)):
+            raise RuntimeError(f"[k6] injection light curve not finite in {f}")
+        data[f] = {"time": t, "mag": m, "mag_error": err}
+    return data
+
+
+def k6_cases(np, torch):
+    """[k6]'s likelihoods on the card, by name: (EMLikelihood, PriorDict).
+    Me2017 on the nine filters of its cells (Pei SMC at the host, a
+    sampled E(B-V)); Me2017 with a composite filter (F606W, the mean of g
+    and r), the CCM89 foreground, a finite detection limit and time-node
+    systematics; TrPi2018 at full resolution on its five filters; the
+    Bu2019lm surrogate (a row selection, with V's own row untrained and
+    its helpers appended) with a detection limit."""
+    from nmma_tpu_torch.likelihood import (EMLikelihood, PhotometryData,
+                                           SystematicsModel)
+    from nmma_tpu_torch.models import (DetectorLightCurveModel,
+                                       SVDModelData, make_svd_source_model)
+    from nmma_tpu_torch.priors import PriorDict, parse_prior_dict
+
+    make_svd_source_model("Bu2019lm_k6", SVDModelData.load(ARTIFACT,
+                                                           device=DEVICE))
+    me_filters = ["sdssu", "ztfg", "ztfr", "ztfi", "ps1::z", "ps1::y",
+                  "2massj", "2massh", "2massks"]
+    specs = {
+        "Me2017": ("Me2017", me_filters, "P92_SMC_host", None, None,
+                   ME_PRIOR_TEXT + K6_EBV_PRIOR, ME_INJECTION,
+                   (0.01, 14.0, 150), (0.5, 12.0), {}),
+        "Me2017_mw": ("Me2017", ["F606W", "ztfi", "2massks"], "G23_MW",
+                      {"ztfi": 19.5}, K6_SYSTEMATICS,
+                      ME_PRIOR_TEXT + K6_EBV_PRIOR, ME_INJECTION,
+                      (0.01, 14.0, 150), (0.5, 12.0), {}),
+        "TrPi2018": ("TrPi2018", GRB_FILTERS, "P92_SMC_host", None, None,
+                     GRB_PRIOR_TEXT, GRB_INJECTION, (0.05, 40.0, 64),
+                     (0.1, 30.0), {}),
+        "Bu2019lm": ("Bu2019lm_k6", ["ztfg", "V", "ztfi", "ps1::z"],
+                     "P92_SMC_host", {"ps1::z": 20.5}, None,
+                     PRIOR_TEXT + K6_EBV_PRIOR, INJECTION,
+                     (0.01, 14.0, 150), (0.5, 12.0), {}),
+    }
+    cases = {}
+    for i, (name, (model, observed, law, limit, sys_spec, prior, injection,
+                   grid, epochs, kw)) in enumerate(specs.items()):
+        det = DetectorLightCurveModel(model, observed,
+                                      sample_times=np.geomspace(*grid),
+                                      extinction_law=law, model_kwargs=kw,
+                                      device=DEVICE)
+        data = k6_data(np, torch, det, observed, injection, epochs, 60 + i)
+        photo, filters = PhotometryData.from_dict(data, observed,
+                                                  device=DEVICE)
+        systematics = SystematicsModel(filters, sys_spec, 1.0,
+                                       model_time_range=grid[:2])
+        priors = parse_prior_dict(prior)
+        priors = PriorDict({**priors.priors, **systematics.create_priors()})
+        systematics.finalize(list(priors.keys()))
+        cases[name] = (EMLikelihood(det, photo, filters, systematics,
+                                    detection_limit=limit), priors)
+    return cases
+
+
+def k6_plant(frame):
+    """The frame with the detector's edge cases planted in rows 0-5 of the
+    source's magnitudes (a batch of fewer rows keeps the first ones): a
+    source row with one finite sample left (its bands all inf), a head of
+    inf (early epochs outside the row's finite span), a gap inside the
+    span (read as 0 there), a NaN, an inf tail, and every row inf."""
+    mags = frame.mags.clone()
+    n_b, _, n_t = mags.shape
+    cases = [(0, 0, slice(0, n_t - 1), math.inf),
+             (1, 1, slice(0, (3 * n_t) // 5), math.inf),
+             (2, 0, slice(n_t // 3, n_t // 3 + 5), math.inf),
+             (3, 1, slice(n_t // 2, n_t // 2 + 1), math.nan),
+             (4, 0, slice(n_t - n_t // 4, n_t), math.inf),
+             (5, slice(None), slice(None), math.inf)]
+    for row, f, cols, value in cases:
+        if row < n_b:
+            mags[row, f, cols] = value
+    return frame._replace(mags=mags)
+
+
+def k6_compare(torch, got, want):
+    """(max |dlogL| / max(1, |logL|) over the rows finite on both sides,
+    whether the -1e30 rows and any NaN sit in the same places)."""
+    same = bool(torch.equal(got <= -1e29, want <= -1e29)) and \
+        bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    both = (got > -1e29) & (want > -1e29)
+    err = float(((got - want).abs() / want.abs().clamp(min=1.0))[both].max()) \
+        if bool(both.any()) else 0.0
+    return err, same
+
+
+def k6_path(np, torch):
+    """Phase 8b: K6 (csrc/em_likelihood.cu) against the plain likelihood
+    (EMLikelihood.log_likelihood_plain) on the card, on k6_cases' four
+    likelihoods at B = 8192, 256, 61 and 8253 (two parts): one K6 launch
+    a part, max |dlogL| / max(1, |logL|) over the finite rows <=
+    K6_LOGL_TOL and the same -1e30 rows. Both sides read one frame (the
+    parameters and the source's magnitudes) computed once, with k6_plant's
+    edge cases in its first rows. Then, on the
+    Me2017 case at B = 8192 and 256, K6's device time, the plain chain's
+    after the frame (sigma_sys included, as on K6's side), the bound
+    (counted as portbench/metrics/k6_roofline.py counts it) and the peak
+    memory of each. Returns K6's entry of the kernel line."""
+    from nmma_tpu_torch.ops import em_likelihood_kernel as k6
+    from portbench.metrics import k6_roofline
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(K6_SEED)
+    cases = k6_cases(np, torch)
+    worst, failed, readings = 0.0, [], {}
+    for name, (lk, priors) in cases.items():
+        for b in K6_BATCHES:
+            p = priors.transform(priors.sample_units(gen, b))
+            frame = k6_plant(lk.model.frame(p))
+            lk.model.frame = lambda params, frame=frame: frame
+            try:
+                reset_counts("k6")
+                got = lk.log_likelihood(p)
+                launched = k6_launches()
+                want = lk.log_likelihood_plain(p)
+                torch.cuda.synchronize()
+                err, same = k6_compare(torch, got, want)
+                finite = float((want > -1e29).float().mean())
+                parts = -(-b // k6.MAX_BATCH)
+                worst = max(worst, err)
+                say("k6", case=name, batch=b, law=lk.model.extinction_law,
+                    max_rel_dlogl=f"{err:.3e}", sentinels_identical=same,
+                    finite_share=f"{finite:.4f}", launches=launched)
+                if launched != parts or not same or not err <= K6_LOGL_TOL \
+                        or finite == 0.0:
+                    failed.append(f"{name} B={b}: {launched} launches for "
+                                  f"{parts} parts, {err} relative, "
+                                  f"sentinels identical: {same}, finite "
+                                  f"share {finite}")
+                if name == "Me2017" and b in (BATCH, 256):
+                    ops = lk.k6_operands(p)
+                    dev_ms, windows = kernel_device_windows(
+                        torch, lambda: k6.em_log_likelihood(**ops),
+                        "em_likelihood_kernel")
+                    plain_ms = time_ms(torch,
+                                       lambda: lk.log_likelihood_plain(p),
+                                       rounds=5, launches=2, warmup=1)
+                    peaks = []
+                    for call in (lk.log_likelihood, lk.log_likelihood_plain):
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        out = call(p)
+                        torch.cuda.synchronize()
+                        peaks.append((torch.cuda.max_memory_allocated()
+                                      - base) / 2**20)
+                        del out
+                    n_f, n_pad = lk.data.valid.shape
+                    n_ops, n_bytes = k6_roofline.work(
+                        b, n_f, lk.model.sample_times.shape[0], n_pad,
+                        int(lk.data.valid.sum()))
+                    bound_ms, bound_by = roofline_ms(n_ops, n_bytes)
+                    readings[b] = dict(dev_ms=dev_ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       peaks=peaks)
+                    say("k6", batch=b, kernel_device_ms=f"{dev_ms:.4f}",
+                        timed_by="profiler", profiled_windows=windows,
+                        plain_ms=f"{plain_ms:.4f}",
+                        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                        share_of_bound=f"{bound_ms / dev_ms:.4f}",
+                        gops=f"{n_ops / 1e9:.3f}",
+                        mbytes=f"{n_bytes / 1e6:.3f}",
+                        peak_mib=f"{peaks[0]:.1f}",
+                        plain_peak_mib=f"{peaks[1]:.1f}")
+            finally:
+                del lk.model.frame
+    if failed:
+        raise RuntimeError("K6 disagrees with the plain likelihood:\n"
+                           + "\n".join(failed))
+    big = readings[BATCH]
+    return {
+        "name": "em_likelihood", "route": "cuda",
+        "source": "nmma_tpu_torch/csrc/em_likelihood.cu",
+        "replaces": None, "max_rel_dlogl": worst,
         "ms": big["dev_ms"], "ms_256": readings[256]["dev_ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "peak_mib": big["peaks"][0],
@@ -2809,6 +3086,11 @@ def k5_launches():
     return tracing.counter(tracing.K5_LAUNCHES)
 
 
+def k6_launches():
+    from nmma_tpu_torch import tracing
+    return tracing.counter(tracing.K6_LAUNCHES)
+
+
 def ramp_chunks():
     """The energy ramp's chunks since they were last reset."""
     from nmma_tpu_torch import tracing
@@ -2827,7 +3109,7 @@ def kernel_launches():
 
 
 def reset_counts(*names):
-    """Set the counters of nmma_tpu_torch.tracing named "k1" to "k5"
+    """Set the counters of nmma_tpu_torch.tracing named "k1" to "k6"
     (kernel launches) or "mesh" (collectives) to 0."""
     from nmma_tpu_torch import tracing
     tracing.reset(*(tracing.MESH_COLLECTIVES if n == "mesh"
@@ -2835,7 +3117,7 @@ def reset_counts(*names):
 
 
 def reset_launches():
-    reset_counts("k1", "k2", "k3", "k4", "k5")
+    reset_counts("k1", "k2", "k3", "k4", "k5", "k6")
 
 
 def gw_logl_gate(torch, got, want, data_power):
@@ -5826,25 +6108,29 @@ def service_phase(np, torch, tmp):
             payload["outdir"] = os.path.join(tmp, f"service_{name}")
             reset_launches()
             t0 = time.time()
-            out = post(payload)
-            torch.cuda.synchronize()
+            with LoglParts() as logl_parts:
+                out = post(payload)
+                torch.cuda.synchronize()
             wall = time.time() - t0
             counted = kernel_launches()
-            k5 = k5_launches()
+            k5, k6 = k5_launches(), k6_launches()
             want = (0, counted[1], 0) if name == "Me2017" else \
                 (0, 0, counted[2])
             if out["status"] != "success" or not math.isfinite(
                     out["log_evidence"]) or counted != want \
-                    or max(counted) == 0 or k5 != counted[1]:
+                    or max(counted) == 0 or k5 != counted[1] \
+                    or k6 != logl_parts.parts or k6 == 0:
                 raise RuntimeError(f"[service] {name}: {out['status']}, "
                                    f"logZ {out.get('log_evidence')}, K1-K3 "
-                                   f"{counted}, K5 {k5}")
+                                   f"{counted}, K5 {k5}, K6 {k6} "
+                                   f"({logl_parts.parts} parts)")
             counts[name] = max(counted)
             say("service", request=name, wall_s=f"{wall:.3f}",
                 logz=f"{out['log_evidence']:.4f}",
                 likelihood_calls=out["n_likelihood_evaluations"],
                 k1_k2_k3_launches=",".join(map(str, counted)),
-                k5_launches=k5,
+                k5_launches=k5, k6_launches=k6,
+                logl_parts=logl_parts.parts,
                 quantiles=",".join(sorted(out["posterior_quantiles"])),
                 webhook=out.get("webhook_status", "none"))
         reset_launches()
@@ -5916,12 +6202,13 @@ def skyportal_phase(np, torch, tmp):
         return runs[-1]
     reset_launches()
     t0 = time.time()
-    out = run_from_skyportal_inputs(payload, outdir=os.path.join(root, "run"),
-                                    invoke=invoke)
-    torch.cuda.synchronize()
+    with LoglParts() as logl_parts:
+        out = run_from_skyportal_inputs(
+            payload, outdir=os.path.join(root, "run"), invoke=invoke)
+        torch.cuda.synchronize()
     seconds = time.time() - t0
     counted = kernel_launches()
-    k5 = k5_launches()
+    k5, k6 = k5_launches(), k6_launches()
     label = os.path.join(root, "run", "Me2017_obj")
     missing = [s for s in ("_result.npz", "_posterior_samples.csv",
                            "_bestfit.json", "_result_meta.json")
@@ -5929,14 +6216,17 @@ def skyportal_phase(np, torch, tmp):
     if out["status"] != "success" or missing or counted[1] == 0 \
             or counted[0] or counted[2] or k5 != counted[1] or not \
             -1e29 < out["log_bayes_factor"] < 0.0 or \
-            (plot == "drawn") != bool(out["plot_file"]):
+            (plot == "drawn") != bool(out["plot_file"]) or \
+            k6 != logl_parts.parts or k6 == 0:
         raise RuntimeError(f"[skyportal] {out}, missing {missing}, K1-K3 "
-                           f"{counted}, K5 {k5}")
+                           f"{counted}, K5 {k5}, K6 {k6} "
+                           f"({logl_parts.parts} parts)")
     with open(os.path.join(root, "run", "Me2017.prior")) as fh:
         pinned = [ln for ln in fh if ln.startswith("luminosity_distance")]
     say("skyportal", status=out["status"],
         logz=f"{out['log_bayes_factor']:.4f}", seconds=f"{seconds:.2f}",
-        k2_launches=counted[1], k5_launches=k5, plot=plot,
+        k2_launches=counted[1], k5_launches=k5, k6_launches=k6,
+        logl_parts=logl_parts.parts, plot=plot,
         distance=pinned[0].split("=")[1].strip(),
         posterior_samples=len(runs[0].result.posterior_indices()))
     bands_launches = lc_bands(
@@ -6385,6 +6675,7 @@ def main() -> int:
 
     k2_entry = me2017_path(np, torch, gen, sample_times)
     k5_entry = k5_path(np, torch)
+    k6_entry = k6_path(np, torch)
     k3_entry, k4_entry = grb_path(np, torch, gen)
     combined_logl(np, torch, gen)
     cli_launches, cli_posterior, k1_bands, k1_bestfit = cli_path(np, torch)
@@ -6431,7 +6722,7 @@ def main() -> int:
         "launches_lc_bands": k1_bands,
         "launches_bestfit_cli": k1_bestfit,
         "launches_mesh": k1_mesh, "launches_mesh_rank": k1_mesh_rank,
-    }, k2_entry, k3_entry, k4_entry, k5_entry]
+    }, k2_entry, k3_entry, k4_entry, k5_entry, k6_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -22,10 +22,12 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one library beside NVCC_FLAGS: K4 and K5 follow an eager PyTorch
-# chain operation by operation, so no product and sum may fuse into an FMA
+# flags of one library beside NVCC_FLAGS: K4, K5 and K6 follow an eager
+# PyTorch chain operation by operation, so no product and sum may fuse into
+# an FMA
 EXTRA_FLAGS = {"grb_dynamics": ("-fmad=false",),
-               "bb_photometry": ("-fmad=false",)}
+               "bb_photometry": ("-fmad=false",),
+               "em_likelihood": ("-fmad=false",)}
 
 # library name -> (source file, {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
@@ -54,6 +56,12 @@ KERNELS = {
         "nmma_bb_photometry": (_I, [_P] * 6 + [ctypes.c_longlong] + [_I] * 4
                                + [ctypes.c_float, _I, _P]),
         "nmma_bb_photometry_supported": (_I, [ctypes.c_longlong] + [_I] * 3),
+        "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "em_likelihood": ("em_likelihood.cu", {
+        "nmma_em_likelihood": (_I, [_P] * 17 + [ctypes.c_longlong] * 2
+                               + [_I] * 8 + [_P]),
+        "nmma_em_likelihood_supported": (_I, [ctypes.c_longlong] + [_I] * 6),
         "nmma_cuda_error_string": (ctypes.c_char_p, [_I]),
     }),
 }

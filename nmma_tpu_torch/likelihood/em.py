@@ -16,6 +16,10 @@ Statistical semantics matched to the reference:
   * total sigma^2 = data^2 + systematic^2 (reference :214-216);
   * any NaN / all-inf model => the -1e30 sentinel (reference sanity checks
     :206-209, :306-311).
+
+On a CUDA device everything after the source's magnitudes (the rest of the
+detector frame, the interpolation and the terms) is one launch of K6
+(``ops/em_likelihood_kernel.py``); on the CPU the plain chain runs.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from .. import resolve_device, tracing
 from ..filters import resolve_filter
 from ..models.base import DetectorLightCurveModel
+from ..ops import em_likelihood_kernel
 from .systematics import SystematicsModel
 
 _NEG_INF = -1e30  # finite stand-in for nan_to_num(-inf); safe in f32
@@ -137,6 +142,10 @@ class EMLikelihood:
             lim = list(detection_limit)
         self.detection_limit = torch.tensor(
             lim, dtype=torch.float32, device=device)[:, None]      # [F, 1]
+        # K6's forms of the helper rows, their weights and the limits
+        self._k6_rows = self._helper_rows.to(torch.int32).contiguous()
+        self._k6_weights = self._helper_weights[:, :, 0].contiguous()
+        self._k6_limit = self.detection_limit[:, 0].contiguous()
 
     def expected_mags(self, obs_times_model, model_mags):
         """Model mags at the observation times, ``[B, F_obs, N]``.
@@ -201,39 +210,72 @@ class EMLikelihood:
         wrow = self._helper_weights                           # [F, K, 1]
         return torch.sum(torch.where(wrow > 0.0, est_k * wrow, 0.0), dim=2)
 
+    def k6_operands(self, parameters):
+        """The operands of K6 (``ops/em_likelihood_kernel.py``) for a
+        parameter dict ``{name: [B]}``: the detector frame up to the source
+        and sigma_sys run eagerly, the rest is the kernel's."""
+        p, mags = self.model.frame(parameters)
+        sigma_sys = self.systematics(parameters, self.data.times)
+        d, model = self.data, self.model
+        return dict(
+            mags=mags.contiguous(), t_grid=model.sample_times,
+            z=p["redshift"].contiguous(),
+            timeshift=p["timeshift"].contiguous(),
+            dm=(None if model.source.apparent_amplitude
+                else p["distance_modulus"].contiguous()),
+            ebv=p["Ebv"].contiguous(), nu_nodes=model.nu_nodes,
+            nu_weights=model.nu_weights, helper_rows=self._k6_rows,
+            helper_weights=self._k6_weights, times=d.times,
+            data_mags=d.mags, sigmas=d.sigmas, valid=d.valid,
+            detection_limit=self._k6_limit,
+            sigma_sys=sigma_sys.contiguous(),
+            extinction_law=model.extinction_law)
+
     def log_likelihood(self, parameters):
-        """``[B]`` log-likelihoods for a parameter dict ``{name: [B]}``."""
+        """``[B]`` log-likelihoods for a parameter dict ``{name: [B]}``:
+        on a CUDA device the detector frame up to the source, sigma_sys and
+        K6; on the CPU :meth:`log_likelihood_plain`."""
         with tracing.span("likelihood.log_likelihood"):
-            obs_times_model, model_mags = self.model(parameters)
-            with tracing.span("likelihood.expected_mags"):
-                est = self.expected_mags(obs_times_model,
-                                         model_mags)          # [B, F, N]
-            sigma_sys = self.systematics(parameters, self.data.times)
+            if self.data.times.device.type != "cpu" \
+                    and not self.model.source.bolometric:
+                return em_likelihood_kernel.em_log_likelihood(
+                    **self.k6_operands(parameters))
+            return self.log_likelihood_plain(parameters)
 
-            d = self.data
-            is_det = d.valid & torch.isfinite(d.sigmas)
-            is_lim = d.valid & ~torch.isfinite(d.sigmas)
+    def log_likelihood_plain(self, parameters):
+        """``[B]`` log-likelihoods by the plain chain on any device: the
+        detector model, the interpolation onto the epochs, sigma_sys and
+        the terms, eagerly."""
+        obs_times_model, model_mags = self.model(parameters)
+        with tracing.span("likelihood.expected_mags"):
+            est = self.expected_mags(obs_times_model,
+                                     model_mags)              # [B, F, N]
+        sigma_sys = self.systematics(parameters, self.data.times)
 
-            total_sigma = torch.sqrt(d.sigmas ** 2 + sigma_sys ** 2)
-            safe_sigma = torch.where(is_det, total_sigma, 1.0)
-            safe_est = torch.where(torch.isfinite(est), est, 1e30)
+        d = self.data
+        is_det = d.valid & torch.isfinite(d.sigmas)
+        is_lim = d.valid & ~torch.isfinite(d.sigmas)
 
-            chi2_terms = truncated_gaussian_logpdf(
-                d.mags, safe_est, safe_sigma, self.detection_limit)
-            chi2 = torch.where(is_det, chi2_terms, 0.0).sum(dim=(1, 2))
-            sf_terms = gaussian_logsf(d.mags, safe_est,
-                                      torch.clamp(sigma_sys, min=1e-10))
-            logsf = torch.where(is_lim, sf_terms, 0.0).sum(dim=(1, 2))
+        total_sigma = torch.sqrt(d.sigmas ** 2 + sigma_sys ** 2)
+        safe_sigma = torch.where(is_det, total_sigma, 1.0)
+        safe_est = torch.where(torch.isfinite(est), est, 1e30)
 
-            logl = chi2 + logsf
-            # model completely invalid (all-inf in any used band) => sentinel
-            any_finite_per_band = torch.any(torch.isfinite(est) & d.valid,
-                                            dim=2)
-            used_band = torch.any(d.valid, dim=1)
-            ok = torch.all(any_finite_per_band | ~used_band, dim=1)
-            logl = torch.where(ok, logl, _NEG_INF)
-            return torch.where(torch.isnan(logl), _NEG_INF,
-                               torch.clamp(logl, min=_NEG_INF))
+        chi2_terms = truncated_gaussian_logpdf(
+            d.mags, safe_est, safe_sigma, self.detection_limit)
+        chi2 = torch.where(is_det, chi2_terms, 0.0).sum(dim=(1, 2))
+        sf_terms = gaussian_logsf(d.mags, safe_est,
+                                  torch.clamp(sigma_sys, min=1e-10))
+        logsf = torch.where(is_lim, sf_terms, 0.0).sum(dim=(1, 2))
+
+        logl = chi2 + logsf
+        # model completely invalid (all-inf in any used band) => sentinel
+        any_finite_per_band = torch.any(torch.isfinite(est) & d.valid,
+                                        dim=2)
+        used_band = torch.any(d.valid, dim=1)
+        ok = torch.all(any_finite_per_band | ~used_band, dim=1)
+        logl = torch.where(ok, logl, _NEG_INF)
+        return torch.where(torch.isnan(logl), _NEG_INF,
+                           torch.clamp(logl, min=_NEG_INF))
 
     def __call__(self, parameters):
         return self.log_likelihood(parameters)

@@ -10,7 +10,9 @@ of a struct-of-arrays parameter dict ``{name: [B]}`` (absolute AB
 magnitudes on a static source-frame time grid), and
 ``DetectorLightCurveModel.__call__`` maps ``params -> (obs_times [B, T],
 apparent mags [B, F, T])`` with redshift stretch, timeshift, distance
-modulus, K-ish correction and extinction. The batch is an explicit first
+modulus, K-ish correction and extinction, in two steps: ``frame`` (the
+parameters and the source) and ``observe`` (the rest), which the
+likelihood's kernel replaces on the card. The batch is an explicit first
 dimension where the JAX package vmaps a per-sample function.
 """
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 import inspect
 import math
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -128,6 +130,14 @@ def get_source_model(name: str) -> SourceModel:
     return _SOURCE_MODELS[name]
 
 
+class DetectorFrame(NamedTuple):
+    """What :meth:`DetectorLightCurveModel.frame` hands on: the completed
+    parameters {name: [B]} and the source's rows [B, F, T]."""
+
+    parameters: dict
+    mags: torch.Tensor
+
+
 class DetectorLightCurveModel:
     """Batched detector-frame light-curve map for one source model.
 
@@ -206,9 +216,12 @@ class DetectorLightCurveModel:
                 p["luminosity_distance"])
         return p
 
-    def __call__(self, parameters):
-        """params {name: [B]} -> (observable_times [B, T], mags [B, F, T]);
-        a bolometric model gives L / 1e40 erg/s [B, T] in place of mags."""
+    def frame(self, parameters):
+        """The detector frame up to the source: params {name: [B]} ->
+        :class:`DetectorFrame`, the completed parameters (with
+        ``redshift`` and ``distance_modulus``) and the source's rows
+        [B, F, T] in this detector's filter order, untrained filters inf
+        (L / 1e40 erg/s [B, T] for a bolometric source)."""
         with tracing.span("model.detector"):
             t = self.sample_times
             p = self.prepare_parameters(parameters)
@@ -230,7 +243,17 @@ class DetectorLightCurveModel:
                 mags = mags[:, self._rows]
                 if self._untrained:
                     mags[:, self._untrained] = math.inf
+            return DetectorFrame(p, mags)
 
+    def observe(self, frame):
+        """The rest of the detector frame: a :class:`DetectorFrame` ->
+        (observable_times [B, T], apparent mags [B, F, T]) with redshift
+        stretch, timeshift, extinction, distance modulus and redshift
+        correction; a bolometric source gives L / 1e40 erg/s [B, T]."""
+        with tracing.span("model.detector"):
+            p, mags = frame
+            t = self.sample_times
+            z = p["redshift"]
             observable_times = t[None, :] * (1.0 + z)[:, None] \
                 + p["timeshift"][:, None]
             if self.source.bolometric:
@@ -254,3 +277,8 @@ class DetectorLightCurveModel:
             finite_count = torch.isfinite(apparent).sum(dim=2, keepdim=True)
             apparent = torch.where(finite_count >= 2, apparent, math.inf)
             return observable_times, apparent
+
+    def __call__(self, parameters):
+        """params {name: [B]} -> (observable_times [B, T], mags [B, F, T]);
+        a bolometric model gives L / 1e40 erg/s [B, T] in place of mags."""
+        return self.observe(self.frame(parameters))

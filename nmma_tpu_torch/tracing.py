@@ -24,7 +24,7 @@ of ``TRIMONTH_S`` seconds; :func:`trace_us` maps a stamp onto that axis, so
 a span lies beside the profiler's own records of the same moment.
 
 Counters are host integers, counted whether or not a profiler records:
-kernel launches (``K1_LAUNCHES`` to ``K5_LAUNCHES``), the energy ramp's
+kernel launches (``K1_LAUNCHES`` to ``K6_LAUNCHES``), the energy ramp's
 chunks (``RAMP_CHUNKS``) and the split likelihood's collectives
 (``MESH_COLLECTIVES``; the sampler's stop agreement is not counted).
 :func:`counter` reads one, :func:`reset` sets them to 0.
@@ -46,6 +46,7 @@ K2_LAUNCHES = "kernel.k2.launches"
 K3_LAUNCHES = "kernel.k3.launches"
 K4_LAUNCHES = "kernel.k4.launches"
 K5_LAUNCHES = "kernel.k5.launches"
+K6_LAUNCHES = "kernel.k6.launches"
 RAMP_CHUNKS = "grb.ramp.chunks"
 MESH_COLLECTIVES = "mesh.collectives"
 
@@ -88,7 +89,8 @@ class _Noop:
 
 _NOOP = _Noop()
 _counts = {K1_LAUNCHES: 0, K2_LAUNCHES: 0, K3_LAUNCHES: 0, K4_LAUNCHES: 0,
-           K5_LAUNCHES: 0, RAMP_CHUNKS: 0, MESH_COLLECTIVES: 0}
+           K5_LAUNCHES: 0, K6_LAUNCHES: 0, RAMP_CHUNKS: 0,
+           MESH_COLLECTIVES: 0}
 _records = []
 _dropped = 0
 _ids = itertools.count()

@@ -9,7 +9,7 @@ slice's whole iterations and counted window; per innermost span, the device
 milliseconds and kernel launches it holds, the idle milliseconds whose gaps
 fall under it and the host synchronisations, over the counted window and
 over the whole slice (``null`` is what no span holds); the share of the
-slice's kernel time held by a span; whether each launch of K1 to K5
+slice's kernel time held by a span; whether each launch of K1 to K6
 lies inside its ``kernel.k*`` span, with the smallest margins; the least
 lag from a launch to its kernel; spans a whole iteration; and the mean
 time of the slice's likelihood calls (CUDA events).
@@ -29,7 +29,7 @@ if ROOT not in sys.path:
 
 KERNELS = {"kernel.k1": "svd_mlp", "kernel.k2": "me2017_dynamics",
            "kernel.k3": "grb_eats", "kernel.k4": "grb_dynamics",
-           "kernel.k5": "bb_photometry"}
+           "kernel.k5": "bb_photometry", "kernel.k6": "em_likelihood"}
 
 
 def launches_inside(program, span_name, kernel):
